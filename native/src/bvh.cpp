@@ -8,8 +8,8 @@
 //  * rtt_build_bvh: full flattened tree (bbox_min/max, children, leaf prim)
 //    for host-side queries and future traversal kernels;
 //  * rtt_cluster_spheres: a treelet cut of the same SAH tree into <= max_leaf
-//    -sized clusters (a primitive reordering + per-cluster AABBs), which is
-//    the layout the Pallas megakernel's cluster-culled intersect loop uses.
+//    -sized clusters (a primitive reordering + per-cluster AABBs), the
+//    layout a cluster-culled intersect loop consumes.
 //
 // Exposed via ctypes from rustraytrace_tpu/native.py; a NumPy fallback with
 // identical semantics lives in rustraytrace_tpu/ops/bvh.py.

@@ -1,8 +1,9 @@
-"""rustraytrace_tpu — a TPU-native differentiable Monte Carlo path tracer in JAX.
+"""rustraytrace_tpu — a differentiable Monte Carlo path tracer in JAX.
 
 A from-scratch re-design (NOT a port) of the capabilities of the reference
 Rust ray tracer ``jwheo12/RustRayTrace`` (the *Ray Tracing in One Weekend*
-trilogy: CPU/rayon + wgpu/WGSL + CUDA backends), re-architected for TPUs:
+trilogy: CPU/rayon + wgpu/WGSL + CUDA backends), re-architected for an
+accelerator driven from JAX (today an NVIDIA H100):
 
 * counter-based per-sample RNG streams (threefry) instead of per-thread
   stateful RNG (reference: ``src/books/*/rtweekend.rs:9-11``,
@@ -13,7 +14,7 @@ trilogy: CPU/rayon + wgpu/WGSL + CUDA backends), re-architected for TPUs:
 * scenes as SoA pytrees of device arrays — the same idea as the reference's
   GPU scene compiler (``src/gpu/mod.rs:113-301``) — which double as the
   differentiable parameter vector,
-* Pallas megakernels over pixel tiles for the hot path, and
+* a Pallas (Triton) closest-hit kernel for box-free scenes, and
 * ``shard_map`` over a device mesh for pixel/spp sharding with ``psum``
   framebuffer reduction (the reference is single-process: rayon scanlines,
   ``src/books/*/camera.rs:66-88``).

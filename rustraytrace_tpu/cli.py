@@ -1,8 +1,8 @@
 """Command-line renderer — the analog of the reference's ``src/main.rs``.
 
 Reference interface (``src/main.rs:14-99``): ``[--cpu|--gpu|--cuda] <book>
-[scene]``, PPM P3 on stdout, progress on stderr.  Here the backends are TPU
-execution strategies instead of separate device implementations, scene/book
+[scene]``, PPM P3 on stdout, progress on stderr.  Here the backends are
+execution strategies on whatever device JAX runs on, scene/book
 dispatch matches the reference's (``the_next_week`` scenes 1-9 per
 ``the_next_week/mod.rs:68-81``), and the compile-time ``OVERRIDES`` const
 (``src/config.rs:50-62``) becomes runtime flags.
@@ -25,7 +25,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(
         prog="rustraytrace_tpu",
-        description="TPU-native differentiable path tracer "
+        description="differentiable path tracer in JAX "
                     "(Ray Tracing in One Weekend trilogy feature set)",
     )
     p.add_argument("scene", help="book or scene name: " + ", ".join(
@@ -33,9 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("scene_num", nargs="?", type=int, default=None,
                    help="scene number for the_next_week (1-9)")
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "xla", "sphere_kernel", "megakernel",
-                            "wavefront"],
-                   help="execution backend (auto picks the fastest valid one)")
+                   choices=["auto", "xla", "sphere_kernel"],
+                   help="execution backend (auto: the closest-hit kernel "
+                        "for box-free path scenes on a GPU, else xla)")
     p.add_argument("--sharded", action="store_true",
                    help="shard pixels/spp across all visible devices")
     p.add_argument("--spp-shards", type=int, default=None,
@@ -104,6 +104,9 @@ def debug_render(cfg, mode: str):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from .utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
     from . import models, render
     from .utils import image_io
     from .utils.checkpoint import load_checkpoint, save_checkpoint
@@ -165,10 +168,6 @@ def main(argv=None) -> int:
     if args.sharded:
         from .parallel import make_mesh, render_image_sharded
 
-        if args.backend == "sphere_kernel":
-            print("--backend sphere_kernel is not supported with --sharded "
-                  "(use auto, xla, or megakernel)", file=sys.stderr)
-            return 2
         mesh = make_mesh(spp_shards=args.spp_shards)
         if not args.quiet:
             print(f"mesh: {dict(mesh.shape)}", file=sys.stderr)

@@ -25,34 +25,25 @@ _SCENE_SEED = 0x5EED_1234
 
 
 def _load_earthmap() -> np.ndarray:
-    """Decode earthmap.jpg; search $RTW_IMAGES then the bundled assets dir,
-    mirroring the reference's search order (rtw_image.rs:11-36). Falls back to
-    a procedural blue-green globe (reference falls back to magenta,
-    rtw_image.rs:47-49) so tests never depend on the asset."""
+    """The decoded earth texture as f32 [H, W, 3] in [0, 1].
+
+    Searches $RTW_IMAGES then the bundled assets dir for ``earthmap.npz``
+    (uint8, decoded from earthmap.jpg by scripts/make_earthmap_npz.py),
+    mirroring the reference's search order (rtw_image.rs:11-36).  A missing
+    texture raises: the earth scenes never silently render another image."""
     candidates = []
     env = os.environ.get("RTW_IMAGES")
     if env:
-        candidates.append(os.path.join(env, "earthmap.jpg"))
+        candidates.append(os.path.join(env, "earthmap.npz"))
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    candidates.append(os.path.join(here, "assets", "earthmap.jpg"))
-    candidates.append("/root/reference/images/earthmap.jpg")
+    candidates.append(os.path.join(here, "assets", "earthmap.npz"))
     for path in candidates:
         if os.path.exists(path):
-            try:
-                from PIL import Image
-
-                img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
-                return img
-            except Exception:
-                continue
-    # procedural fallback: latitude bands + longitude wobble
-    h, w = 256, 512
-    v, u = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
-    land = (np.sin(u * 21.0) * np.cos(v * 17.0) + np.sin(u * 5 + v * 9)) > 0.3
-    img = np.where(land[..., None],
-                   np.array([0.1, 0.5, 0.15], np.float32),
-                   np.array([0.05, 0.15, 0.5], np.float32))
-    return img.astype(np.float32)
+            with np.load(path, allow_pickle=False) as z:
+                return z["img"].astype(np.float32) / 255.0
+    raise FileNotFoundError(
+        "earthmap.npz not found in " + ", ".join(candidates)
+        + " (build it with scripts/make_earthmap_npz.py)")
 
 
 def _finish(b: SceneBuilder, cfg: RenderConfig, integrator: str,

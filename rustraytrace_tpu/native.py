@@ -1,10 +1,12 @@
 """ctypes bindings for the native C++ runtime components (native/).
 
-The reference's runtime is fully native (Rust); the TPU build keeps the
+The reference's runtime is fully native (Rust); this build keeps the
 compute path in JAX/Pallas and implements the host-side runtime pieces in
 C++ (``native/src``): the PPM output formatter (render_io.rs analog) and the
-SAH BVH builder / sphere clusterer (bvh.rs analog, feeding the megakernel's
-cluster-culled intersect loop).
+SAH BVH builder / sphere clusterer (bvh.rs analog; no render path consumes
+it yet).
+
+The library is a build output, not a tracked file.
 
 The shared library is built on demand with ``make -C native`` on first use;
 every entry point has a NumPy fallback with identical semantics, so the
@@ -50,12 +52,10 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.rtt_finalize_ppm_p3.restype = ctypes.c_longlong
         lib.rtt_u8_ppm_p3.restype = ctypes.c_longlong
         lib.rtt_cluster_spheres.restype = ctypes.c_int
-        # AABB-primitive entry point (box clustering); absent in libraries
-        # built before round 2 — rebuilt on demand, guarded at call sites.
-        # (The full flattened-tree builders rtt_build_bvh/rtt_build_bvh_aabb
+        # AABB-primitive entry point (box clustering); guarded at call sites.
+        # (The flattened-tree builders rtt_build_bvh/rtt_build_bvh_aabb
         # exist in the C++ lib as the clusterers' internal foundation; they
-        # have no device consumer, so round 3 removed their Python surface
-        # — VERDICT r2 weak #7.)
+        # have no Python surface.)
         if hasattr(lib, "rtt_cluster_aabbs"):
             lib.rtt_cluster_aabbs.restype = ctypes.c_int
         _lib = lib

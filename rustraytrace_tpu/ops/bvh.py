@@ -5,7 +5,8 @@ binary tree, 12-bucket surface-area heuristic over the centroid bounds'
 longest axis (bvh.rs:63-117), sorted-median fallback on degenerate centroids
 or non-improving splits (bvh.rs:56-61,118-123,140-145).  Node ids are
 assigned preorder so SAH leaves cover contiguous ascending ranges of the
-primitive order — the property the cluster cut relies on.
+primitive order — the property the cluster cut relies on.  The builders
+are platform-independent host code; no render path consumes them yet.
 """
 
 from __future__ import annotations
@@ -125,178 +126,3 @@ def cluster_aabbs_numpy(pmin, pmax, max_leaf: int = 16
     assert np.all(starts == np.concatenate([[0], np.cumsum(counts)[:-1]]))
     cluster_start = np.concatenate([starts, [starts[-1] + counts[-1]]]).astype(np.int32)
     return order, cluster_start, bmin[is_leaf], bmax[is_leaf]
-
-
-# ---------------------------------------------------------------------------
-# Spatial-split grid binning (round 4): de-overlapping dense sphere clouds
-# ---------------------------------------------------------------------------
-
-
-def sphere_fill_fraction(centers, radii) -> float:
-    """Total sphere volume / volume of the population's swept AABB — the
-    density discriminator for the grid-binning dispatch.  Dense clouds where
-    SAH cluster AABBs necessarily overlap (book2_final's 1006-sphere cloud:
-    1000 r=10 spheres filling a 165-cube -> fill ~0.93) score high; spread
-    fields (flagship random spheres ~0.001, bouncing_spheres ~0.07) score
-    low.  (A center-containment overlap count was tried first and measured
-    ~1.9 on the real cloud — it misses the pathology, which is rays
-    CROSSING many dilated boxes, not origins sitting inside them.)"""
-    centers = np.asarray(centers, np.float32)
-    radii = np.abs(np.asarray(radii, np.float32))
-    lo = (centers - radii[:, None]).min(axis=0)
-    hi = (centers + radii[:, None]).max(axis=0)
-    vol = float(np.prod(np.maximum(hi - lo, 1e-6)))
-    return float((4.0 / 3.0 * np.pi * radii ** 3).sum() / vol)
-
-
-def grid_bin_spheres(centers, radii, max_leaf: int = 32, res: int = 8,
-                     cell_r_mult: float = 4.0, dup_cap: float = 8.0):
-    """Uniform-grid spatial binning with sphere DUPLICATION (the SBVH-style
-    spatial split, specialized to a flat grid): each sphere is listed in
-    every cell its swept AABB overlaps, and each cluster's AABB is the cell
-    box CLIPPED to the union of its members' AABBs.  Cells do not overlap,
-    so a ray origin sits inside at most one cell — the tile cull's
-    always-admitted set collapses from "every cloud cluster" to one cell,
-    and best-t bounding prunes the rest.
-
-    Correctness under duplication: a sphere's full quadric is tested in
-    every cell that lists it, so any hit point p (which lies in some cell
-    the sphere overlaps, inside that cell's clipped AABB) is found whenever
-    it can still win (cull admits iff t1 <= t_hit < best_t); duplicate
-    tests of one sphere yield identical roots and identical winner
-    attributes (prepare_megakernel permutes the attribute table by the
-    same duplicated order), so radiance is unchanged.
-
-    Oversize spheres (diameter > cell) would duplicate into O((d/cell)^3)
-    cells; they are split out and SAH-clustered after the cells.  Returns
-    (order [S>=N, with duplicates], cluster_start [C+1], cl_min [C,3],
-    cl_max [C,3]) like cluster_spheres_numpy, or None when the binning is
-    not applicable (too few small spheres / duplication past ``dup_cap``x).
-    """
-    centers = np.asarray(centers, np.float32)
-    radii = np.abs(np.asarray(radii, np.float32))
-    n = centers.shape[0]
-    pmin_s = centers - radii[:, None]
-    pmax_s = centers + radii[:, None]
-
-    r_med = float(np.median(radii))
-    small = (2.0 * radii) <= max(cell_r_mult * r_med, 1e-6)
-    n_small = int(small.sum())
-    if n_small < 64:
-        return None
-    sm_idx = np.where(small)[0]
-    bb_lo = pmin_s[sm_idx].min(axis=0)
-    bb_hi = pmax_s[sm_idx].max(axis=0)
-    extent = np.maximum(bb_hi - bb_lo, 1e-6)
-    cell = max(cell_r_mult * r_med, float(extent.max()) / res)
-    ncell = np.maximum(np.ceil(extent / cell).astype(int), 1)
-
-    # overlapped integer cell ranges per small sphere
-    lo_i = np.clip(np.floor((pmin_s[sm_idx] - bb_lo) / cell).astype(int),
-                   0, ncell - 1)
-    hi_i = np.clip(np.floor((pmax_s[sm_idx] - bb_lo) / cell).astype(int),
-                   0, ncell - 1)
-    n_dup = int(np.prod(hi_i - lo_i + 1, axis=1).sum())
-    if n_dup > dup_cap * n_small:
-        return None
-
-    members: dict = {}
-    for k in range(n_small):
-        i = sm_idx[k]
-        for ix in range(lo_i[k, 0], hi_i[k, 0] + 1):
-            for iy in range(lo_i[k, 1], hi_i[k, 1] + 1):
-                for iz in range(lo_i[k, 2], hi_i[k, 2] + 1):
-                    members.setdefault((ix, iy, iz), []).append(i)
-
-    order_parts, starts, mins, maxs = [], [0], [], []
-
-    def _emit(idx_list, clip_lo, clip_hi):
-        idx = np.asarray(idx_list, np.int32)
-        if idx.shape[0] > max_leaf:
-            o, cs, mn, mx = cluster_spheres_numpy(
-                centers[idx], radii[idx], max_leaf)
-            for c in range(cs.shape[0] - 1):
-                sub = idx[o[cs[c]:cs[c + 1]]]
-                order_parts.append(sub)
-                starts.append(starts[-1] + sub.shape[0])
-                mins.append(np.maximum(mn[c], clip_lo))
-                maxs.append(np.minimum(mx[c], clip_hi))
-        else:
-            order_parts.append(idx)
-            starts.append(starts[-1] + idx.shape[0])
-            mins.append(np.maximum(pmin_s[idx].min(axis=0), clip_lo))
-            maxs.append(np.minimum(pmax_s[idx].max(axis=0), clip_hi))
-
-    for (ix, iy, iz), idx_list in sorted(members.items()):
-        c_lo = bb_lo + cell * np.asarray([ix, iy, iz], np.float32)
-        _emit(idx_list, c_lo, c_lo + cell)
-
-    big_idx = np.where(~small)[0]
-    if big_idx.shape[0] > 0:
-        o, cs, mn, mx = cluster_spheres_numpy(
-            centers[big_idx], radii[big_idx], max_leaf)
-        for c in range(cs.shape[0] - 1):
-            sub = big_idx[o[cs[c]:cs[c + 1]]].astype(np.int32)
-            order_parts.append(sub)
-            starts.append(starts[-1] + sub.shape[0])
-            mins.append(mn[c])
-            maxs.append(mx[c])
-
-    order = np.concatenate(order_parts).astype(np.int32)
-    return (order, np.asarray(starts, np.int32),
-            np.asarray(mins, np.float32), np.asarray(maxs, np.float32))
-
-
-def cluster_spheres_spatial(centers, radii, max_leaf: int = 32,
-                            build_sah=None):
-    """Clustering dispatch for the megakernel's sphere tables: SAH treelet
-    cut (the round-2/3 default) unless the SAH clusters are pathologically
-    OVERLAPPING — measured directly as the mean number of cluster AABBs
-    containing a sphere center — in which case the group is re-clustered
-    with :func:`grid_bin_spheres` (duplicating spatial split).  This is the
-    build-time representation change for book2_final's 1006-sphere cloud
-    (r=10 spheres filling a 165-cube: every in-cloud tile origin sits inside
-    ~all cloud cluster AABBs, so the cull admits everything and the tile
-    pays ~1006 sphere tests per bounce; non-overlapping cells restore the
-    per-ray-BVH-class pruning of the reference's recursive descent,
-    bvh.rs:160-172, in tile-coherent form).
-
-    OPT-IN (RTT_SPHERE_GRID=1), measured OFF by default: on book2_final
-    800²@64 the grid renders bit-identically but LOSES to SAH at every
-    resolution and tile size (v5e, one process each: SAH 8.13 M paths/s vs
-    grid res4/6/8/12 = 5.76/5.12/5.14/5.17; at tile_rows 16: 7.76 vs
-    5.36/4.99; at 8: 6.19 vs 4.66/4.12).  The arithmetic says this cannot
-    win under the kernel's ANY-LANE tile admission with divergent
-    persistent-respawn lanes: duplication has a floor of (1+2r/cell)³ ≈
-    1.9-3.2x for r=10 spheres needing cells ≥ 40, while measured admission
-    only drops ~50% — net work ≥ 0.85x SAH at the theoretical best, worse
-    in practice.  The lever for the cloud is TILE COHERENCE (lane
-    redistribution), not the spatial representation; the grid stays as the
-    building block a coherence scheme would need (per-cell lists), proven
-    bit-exact on hardware (tests/test_round4_tpu.py).
-
-    Env knobs (also part of prepare_megakernel_cached's key):
-    RTT_SPHERE_GRID=1 enables; RTT_GRID_RES (default 8) caps the grid
-    resolution per axis; RTT_GRID_FILL (default 0.3) is the fill-fraction
-    trigger threshold (see :func:`sphere_fill_fraction`).
-
-    ``build_sah(centers, radii, max_leaf)`` injects the SAH builder (the
-    C++ fast path from native.py); defaults to the NumPy oracle."""
-    import os
-
-    sah = build_sah if build_sah is not None else cluster_spheres_numpy
-    if (not os.environ.get("RTT_SPHERE_GRID")
-            or centers.shape[0] < 64):
-        return sah(centers, radii, max_leaf)
-    # trigger on the SMALL-sphere sub-population's fill (the big spheres a
-    # mixed group carries would dilute a whole-group fill measurement)
-    radii_a = np.abs(np.asarray(radii, np.float32))
-    r_med = float(np.median(radii_a))
-    small = (2.0 * radii_a) <= max(4.0 * r_med, 1e-6)
-    thresh = float(os.environ.get("RTT_GRID_FILL", "0.3"))
-    if (small.sum() < 64 or sphere_fill_fraction(
-            np.asarray(centers)[small], radii_a[small]) <= thresh):
-        return sah(centers, radii, max_leaf)
-    res = int(os.environ.get("RTT_GRID_RES", "8"))
-    g = grid_bin_spheres(centers, radii, max_leaf, res=res)
-    return g if g is not None else sah(centers, radii, max_leaf)

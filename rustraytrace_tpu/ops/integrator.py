@@ -4,7 +4,7 @@ The reference's recursive ``ray_color`` (books 1/2: src/books/in_one_weekend/
 camera.rs:182-209, the_next_week/camera.rs:174-201) and the GPU iterative
 megakernel loop (src/gpu/renderer.wgsl:175-246) become a ``lax.scan`` over
 bounce index carrying (origin, direction, time, attenuation, radiance, alive).
-Dead lanes are masked, not exited — the TPU way.
+Dead lanes are masked, not exited, so every bounce is one fixed-shape step.
 
 Russian roulette matches the reference exactly: kicks in at bounce >= 5 with
 survival p = clamp(max channel of the running attenuation, 0.05, 0.95)
@@ -44,8 +44,8 @@ class IntegratorOptions:
     bg_mode: int  # config.BG_SKY | config.BG_FLAT
     emit_front_only: bool = False  # book 3 gate
     rr_from_running_product: bool = True  # GPU semantics; book 3 uses per-hit
-    # "xla" = general gather path; "sphere_kernel" = Pallas closest-hit
-    # megastep for sphere-only scenes (see ops/pallas_hit.py)
+    # "xla" = the [R, N] reference intersect; "sphere_kernel" = the Pallas
+    # (Triton) closest-hit kernel for box-free scenes (ops/pallas_hit.py)
     backend: str = "xla"
 
 
@@ -72,13 +72,7 @@ def _background(d, scene_bg, bg_mode):
 
 def trace_path(key: jax.Array, o, d, time, scene: Scene, background,
                opts: IntegratorOptions) -> jnp.ndarray:
-    """Books 1/2 integrator. o,d: [R,3]; time: [R]. Returns radiance [R,3].
-
-    ``opts.backend == "megakernel"`` is handled one level up
-    (render.render_pass delegates whole passes to
-    ops.pallas_megakernel.render_pass_megakernel, which generates its own
-    camera rays in-kernel).
-    """
+    """Books 1/2 integrator. o,d: [R,3]; time: [R]. Returns radiance [R,3]."""
     R = o.shape[0]
     dt = o.dtype
     nm = n_media(scene)
@@ -87,14 +81,13 @@ def trace_path(key: jax.Array, o, d, time, scene: Scene, background,
         o, d, time, atten, radiance, alive = carry
         kb = jax.random.fold_in(key, bounce)
 
+        draws = rng.uniforms(kb, (R,), 4 + nm)
         if opts.backend == "sphere_kernel":
             from .pallas_hit import closest_hit_spheres_pallas
 
-            draws = rng.uniforms(kb, (R,), 4 + nm)
             rec, mat = closest_hit_spheres_pallas(
                 o, d, time, scene, u_media=draws[:, 4:])
         else:
-            draws = rng.uniforms(kb, (R,), 4 + nm)
             rec = closest_hit(o, d, time, scene, draws[:, 4:])
             mat = gather_mat(scene, rec)
 

@@ -1,9 +1,10 @@
 """Batched ray-primitive intersection (closest hit) over SoA scenes.
 
-TPU-first re-design of the reference's ``Hittable::hit`` trait dispatch
+A data-parallel re-design of the reference's ``Hittable::hit`` trait dispatch
 (``src/books/*/hittable.rs``): instead of per-object virtual calls, every ray
-tests every primitive of a class with broadcast vector ops ([R, N] arrays on
-the VPU), classes are merged by running-minimum, and the winning primitive's
+tests every primitive of a class with broadcast vector ops ([R, N] arrays
+that XLA fuses into per-ray reductions), classes are merged by
+running-minimum, and the winning primitive's
 hit record is built with one gather per field.  This is the same brute-force
 strategy as the reference's GPU megakernel (``hit_spheres``,
 ``src/gpu/renderer.wgsl:108-155``) generalized to quads and constant media.
@@ -73,43 +74,24 @@ def sphere_roots(o, d, center, radius):
 def hit_spheres(o, d, time, scene: Scene, t_min, t_max):
     """Closest sphere hit: returns (t [R], idx [R], any [R]).
 
-    MXU formulation: the quadric terms are expanded so the ray-x-sphere
-    coupling is four [R,3]x[3,N] matmuls (d.center, d.cvel, o.center, o.cvel)
-    plus per-ray / per-sphere diagonal terms — the [R,N,3] broadcast of the
-    naive form never materializes, and XLA tiles the contractions onto the
-    systolic array.  With cc = center + time*cvel:
-        h = d.cc - d.o
-        c = |cc|^2 - 2 o.cc + |o|^2 - r^2
-        |cc|^2 = |center|^2 + 2 time (center.cvel) + time^2 |cvel|^2
+    Direct quadric form, as the reference GPU kernel writes it
+    (renderer.wgsl:122-126): oc = cc - o is subtracted BEFORE any product,
+    so the r=1000 ground sphere does not cancel catastrophically, and the
+    whole [R, N] test is elementwise math feeding two sibling reductions
+    (min and argmin over N) that XLA fuses into one pass.
+    With cc = center + time*cvel:  h = d.oc,  c = |oc|^2 - r^2.
     """
-    f32 = o.dtype
-    C = scene.sph_center  # [N,3]
-    V = scene.sph_cvel  # [N,3]
-    r = scene.sph_radius  # [N]
-
-    # HIGHEST precision (bf16x6 ~ true f32): the quadric cancellation on
-    # large spheres (r=1000 ground) turns default single-pass-bf16 matmul
-    # error (~3e-3 rel) into severe surface acne.
-    hi = jax.lax.Precision.HIGHEST
-    d_C = jnp.dot(d, C.T, precision=hi)  # [R,N] — MXU
-    d_V = jnp.dot(d, V.T, precision=hi)
-    o_C = jnp.dot(o, C.T, precision=hi)
-    o_V = jnp.dot(o, V.T, precision=hi)
-
-    C2 = jnp.sum(C * C, axis=-1)  # [N]
-    CV = jnp.sum(C * V, axis=-1)
-    V2 = jnp.sum(V * V, axis=-1)
-    o2 = jnp.sum(o * o, axis=-1)  # [R]
-    d_o = jnp.sum(d * o, axis=-1)
+    cc = (scene.sph_center[None, :, :]
+          + time[:, None, None] * scene.sph_cvel[None, :, :])  # [R,N,3]
+    oc = cc - o[:, None, :]
     a = jnp.sum(d * d, axis=-1)  # [R]
-
-    tcol = time[:, None]
-    h = d_C + tcol * d_V - d_o[:, None]  # [R,N]
-    cc2 = C2[None, :] + 2.0 * tcol * CV[None, :] + (tcol * tcol) * V2[None, :]
-    c = cc2 - 2.0 * (o_C + tcol * o_V) + o2[:, None] - (r * r)[None, :]
-
+    h = jnp.sum(d[:, None, :] * oc, axis=-1)  # [R,N]
+    r = scene.sph_radius
+    c = jnp.sum(oc * oc, axis=-1) - (r * r)[None, :]
     disc = h * h - a[:, None] * c
     has = disc > 0.0
+    # double-where so the backward pass never sees sqrt'(0)=inf on missed
+    # lanes (inf * 0-mask = NaN would poison inverse-rendering gradients)
     sqrtd = jnp.sqrt(jnp.where(has, disc, 1.0))
     sqrtd = jnp.where(has, sqrtd, 0.0)
     inv_a = 1.0 / a[:, None]
@@ -121,9 +103,9 @@ def hit_spheres(o, d, time, scene: Scene, t_min, t_max):
     ok = has & (root > t_min[:, None]) & (root < t_max[:, None])
     ok = ok & (scene.sph_mask[None, :] > 0)
     t = jnp.where(ok, root, T_MAX)
-    idx = jnp.argmin(t, axis=-1)
-    tbest = jnp.take_along_axis(t, idx[:, None], axis=-1)[:, 0]
-    return tbest, idx.astype(jnp.int32), jnp.any(ok, axis=-1)
+    tbest = jnp.min(t, axis=-1)
+    idx = jnp.argmin(t, axis=-1).astype(jnp.int32)
+    return tbest, idx, tbest < T_MAX
 
 
 def hit_quads(o, d, scene: Scene, t_min, t_max):
@@ -293,11 +275,10 @@ def hit_media(o, d, scene: Scene, t_min, t_best, u_media):
 def refine_sphere_t(o, d, ctr, rad, t, valid):
     """One Newton step on the direct-form quadric f(t) = |o + t d - c|^2 - r^2.
 
-    The MXU-friendly expanded quadric (hit_spheres, pallas_hit) carries ~1e-3
-    relative f32 cancellation error on large spheres (r=1000 ground); a single
-    Newton step against the numerically-stable direct form (oc subtraction
-    BEFORE products, like the reference GPU kernel renderer.wgsl:122-126)
-    restores ~1e-6 relative accuracy for ~15 per-ray flops.
+    Polishes the winner's root with the direct form (oc subtraction BEFORE
+    products, like the reference GPU kernel renderer.wgsl:122-126) for ~15
+    per-ray flops; on the r=1000 ground sphere f32 rounding of |oc|^2 still
+    bounds the root's accuracy at ~1e-4 relative for grazing rays.
     """
     oc = o + t[:, None] * d - ctr
     f = jnp.sum(oc * oc, axis=-1) - rad * rad

@@ -1,7 +1,7 @@
 """Material scattering: compute-every-branch-and-select.
 
 The reference dispatches on a material enum per hit (``MaterialObject::scatter``,
-src/books/*/material.rs).  On a TPU vector unit, divergent branches serialize,
+src/books/*/material.rs).  On a wide vector machine, divergent branches serialize,
 and each material's math is ~10 flops — so every material's scatter direction
 is computed for every ray and the per-ray material kind selects the result,
 exactly the trade the survey prescribes (SURVEY.md §7).

@@ -1,27 +1,23 @@
-"""Pallas TPU closest-hit kernel for sphere scenes (the hot path).
+"""Closest-hit kernel for sphere/quad scenes: Pallas through Triton.
 
-Why: XLA materializes every [R, N] ray-x-sphere intermediate in HBM (measured
-five 128 MB arrays per bounce at R=64k, N=487 — ~3.4 ms while the VPU floor
-is ~0.8 ms), and a matmul (MXU) formulation of the quadric needs the
-catastrophically-cancelling expanded form |c|^2 - 2 o.c + |o|^2 (f32 artifacts
-on the r=1000 ground sphere unless run at Precision.HIGHEST, which costs 6
-bf16 passes and measured slower than the VPU loop).
+The XLA reference (:func:`ops.intersect.closest_hit`) tests every ray against
+every primitive as ``[R, N]`` arrays.  This kernel keeps the per-ray running
+(best_t, best_idx) in registers instead: one ray per thread, 1-D ray blocks,
+and a loop over the sphere table (then the quad table) whose rows are read
+as uniform scalar loads, so every warp of a block reads the same ~16 KB
+table through L1 and nothing ``[R, N]``-shaped reaches device memory.
 
-So the kernel mirrors the reference GPU megakernel's structure
-(``hit_spheres``, src/gpu/renderer.wgsl:108-155): a scalar loop over spheres
-with the numerically-stable direct form (oc = c - o subtracted FIRST, then
-products), vectorized over a (8, 128)-ray tile on the VPU, carrying the
-running (best_t, best_idx).  Sphere data lives in SMEM and is read as scalars
-per iteration; ~25 VPU ops per sphere per 1024-ray tile ≈ 12 cycles/ray for
-~500 spheres — within 2x of the elementwise roofline.
+The loop body mirrors the reference GPU megakernel's ``hit_spheres``
+(src/gpu/renderer.wgsl:108-155): the direct quadric form (oc = c - o
+subtracted first, then products), half-b roots, near-root-else-far,
+t in (1e-3, 1e9) (sphere.rs:25-51); motion blur cc = c + time*v
+(the_next_week/sphere.rs:9-44) is a separate kernel variant so static
+scenes do not pay for it.  Quads use the plane hit and planar-coordinate
+interior test of quad.rs:59-88.
 
-Quadric semantics identical to the reference (half-b form, near-root-else-far,
-t in (1e-3, 1e9): sphere.rs:25-51, renderer.wgsl:122-142); motion blur
-cc = c + time*v per the_next_week/sphere.rs:9-44 (a separate kernel variant so
-static scenes don't pay for it).
-
-The winner's hit/material record is built OUTSIDE the kernel with XLA gathers
-from the winning index (small-table gathers measured cheap when fused).
+The winner's hit and material record is built outside the kernel with XLA
+gathers from the winning index, and a sphere winner's t gets the same Newton
+refinement as the reference path (``intersect.refine_sphere_t``).
 """
 
 from __future__ import annotations
@@ -31,48 +27,76 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..scene import Scene
-from .intersect import HitRecord, T_MIN, T_MAX, sphere_uv
+from .intersect import HitRecord, T_MIN, T_MAX, refine_sphere_t, sphere_uv
 
 _BIG = 1.0e30
 _F32 = jnp.float32
-TILE_ROWS = 64  # (64, 128) ray tile per grid step: 8192 rays amortize the
-# per-sphere scalar SMEM reads (measured 12.5 cycles/ray vs 24 at 8 rows)
-TILE_LANES = 128
-TILE_R = TILE_ROWS * TILE_LANES
+# rays per program, one per thread: 256 rays on 8 warps measured fastest
+# of 128/4, 256/4, 256/8 and 512/8 on the flagship (H100, PERF.md)
+BLOCK_RAYS = 256
+NUM_WARPS = 8
 
-# sphere SMEM table columns
+# sphere table columns
 S_CX, S_CY, S_CZ = 0, 1, 2
 S_R2 = 3
 S_VX, S_VY, S_VZ = 4, 5, 6
 S_COLS = 8
 
+# quad table columns
+Q_QX, Q_QY, Q_QZ = 0, 1, 2
+Q_UX, Q_UY, Q_UZ = 3, 4, 5
+Q_VX, Q_VY, Q_VZ = 6, 7, 8
+Q_NX, Q_NY, Q_NZ = 9, 10, 11  # unit normal
+Q_DP = 12  # plane offset dot(n, q)
+Q_WX, Q_WY, Q_WZ = 13, 14, 15  # w = n / dot(n, n)
+Q_COLS = 16
+
+
+def _pad_rows_pow2(tab: jnp.ndarray) -> jnp.ndarray:
+    """Triton block shapes are powers of two; the padding rows are never
+    read (the loops stop at the real row count)."""
+    n = tab.shape[0]
+    return jnp.pad(tab, ((0, pl.next_power_of_2(n) - n), (0, 0)))
+
 
 def pack_sphere_table(scene: Scene) -> jnp.ndarray:
-    """[N, 8] f32 scalar table; padding rows get r^2 = -BIG (can never hit:
+    """[N, 8] f32 table; masked rows get r^2 = -BIG (can never hit:
     c = |oc|^2 - r^2 becomes +BIG => disc < 0 for every ray)."""
     C = scene.sph_center
-    V = scene.sph_cvel
-    r = scene.sph_radius
-    N = C.shape[0]
-    tab = jnp.zeros((N, S_COLS), _F32)
+    tab = jnp.zeros((C.shape[0], S_COLS), _F32)
     tab = tab.at[:, S_CX:S_CZ + 1].set(C)
-    r2 = jnp.where(scene.sph_mask > 0, r * r, -_BIG)
-    tab = tab.at[:, S_R2].set(r2)
-    tab = tab.at[:, S_VX:S_VZ + 1].set(V)
-    return tab
+    r = scene.sph_radius
+    tab = tab.at[:, S_R2].set(jnp.where(scene.sph_mask > 0, r * r, -_BIG))
+    return tab.at[:, S_VX:S_VZ + 1].set(scene.sph_cvel)
+
+
+def pack_quad_table(scene: Scene) -> jnp.ndarray:
+    """[Q, 16] f32 table; masked quads get a zero normal (|denom| < 1e-8
+    rejects them for every ray)."""
+    q, u, v = scene.quad_q, scene.quad_u, scene.quad_v
+    n = jnp.cross(u, v)
+    nn = jnp.maximum(jnp.sum(n * n, axis=-1, keepdims=True), 1e-30)
+    normal = jnp.where((scene.quad_mask > 0)[:, None], n / jnp.sqrt(nn), 0.0)
+    tab = jnp.zeros((q.shape[0], Q_COLS), _F32)
+    tab = tab.at[:, Q_QX:Q_QZ + 1].set(q)
+    tab = tab.at[:, Q_UX:Q_UZ + 1].set(u)
+    tab = tab.at[:, Q_VX:Q_VZ + 1].set(v)
+    tab = tab.at[:, Q_NX:Q_NZ + 1].set(normal)
+    tab = tab.at[:, Q_DP].set(jnp.sum(normal * q, axis=-1))
+    return tab.at[:, Q_WX:Q_WZ + 1].set(n / nn)
 
 
 def _make_kernel(n_spheres: int, n_quads: int, moving: bool):
     def kernel(sph_ref, quad_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref,
                dz_ref, tm_ref, t_ref, idx_ref):
-        ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]
-        dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
+        ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]
+        dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
         a = dx * dx + dy * dy + dz * dz
         inv_a = 1.0 / a
-        tm = tm_ref[:] if moving else None
+        tm = tm_ref[...] if moving else None
 
         def body(s, carry):
             best_t, best_i = carry
@@ -94,47 +118,29 @@ def _make_kernel(n_spheres: int, n_quads: int, moving: bool):
             tn = (h - sq) * inv_a
             tf = (h + sq) * inv_a
             root = jnp.where((tn > T_MIN) & (tn < T_MAX), tn, tf)
-            take = (
-                (disc > 0.0) & (root > T_MIN) & (root < T_MAX)
-                & (root < best_t)
-            )
-            best_t = jnp.where(take, root, best_t)
-            best_i = jnp.where(take, s, best_i)
-            return best_t, best_i
+            take = ((disc > 0.0) & (root > T_MIN) & (root < T_MAX)
+                    & (root < best_t))
+            return jnp.where(take, root, best_t), jnp.where(take, s, best_i)
 
-        init = (
-            jnp.full((TILE_ROWS, TILE_LANES), _BIG, _F32),
-            jnp.full((TILE_ROWS, TILE_LANES), -1, jnp.int32),
-        )
-        best_t, best_i = jax.lax.fori_loop(0, n_spheres, body, init)
+        init = (jnp.full((BLOCK_RAYS,), _BIG, _F32),
+                jnp.full((BLOCK_RAYS,), -1, jnp.int32))
+        best = jax.lax.fori_loop(0, n_spheres, body, init)
 
         def qbody(qi, carry):
-            # plane hit + planar-coord interior test (quad.rs:59-88); winner
-            # index encoded as n_spheres + qi
+            # winner index encoded as n_spheres + qi
             best_t, best_i = carry
-            from .pallas_megakernel import (Q_DP, Q_NX, Q_NY, Q_NZ, Q_QX,
-                                            Q_QY, Q_QZ, Q_UX, Q_UY, Q_UZ,
-                                            Q_VX, Q_VY, Q_VZ, Q_WX, Q_WY,
-                                            Q_WZ)
             nqx = quad_ref[qi, Q_NX]
             nqy = quad_ref[qi, Q_NY]
             nqz = quad_ref[qi, Q_NZ]
             denom = dx * nqx + dy * nqy + dz * nqz
             safe = jnp.where(jnp.abs(denom) < 1e-8, 1.0, denom)
-            tq = (quad_ref[qi, Q_DP]
-                  - (ox * nqx + oy * nqy + oz * nqz)) / safe
+            tq = (quad_ref[qi, Q_DP] - (ox * nqx + oy * nqy + oz * nqz)) / safe
             relx = ox + tq * dx - quad_ref[qi, Q_QX]
             rely = oy + tq * dy - quad_ref[qi, Q_QY]
             relz = oz + tq * dz - quad_ref[qi, Q_QZ]
-            ux = quad_ref[qi, Q_UX]
-            uy = quad_ref[qi, Q_UY]
-            uz = quad_ref[qi, Q_UZ]
-            vx = quad_ref[qi, Q_VX]
-            vy = quad_ref[qi, Q_VY]
-            vz = quad_ref[qi, Q_VZ]
-            wx = quad_ref[qi, Q_WX]
-            wy = quad_ref[qi, Q_WY]
-            wz = quad_ref[qi, Q_WZ]
+            ux, uy, uz = quad_ref[qi, Q_UX], quad_ref[qi, Q_UY], quad_ref[qi, Q_UZ]
+            vx, vy, vz = quad_ref[qi, Q_VX], quad_ref[qi, Q_VY], quad_ref[qi, Q_VZ]
+            wx, wy, wz = quad_ref[qi, Q_WX], quad_ref[qi, Q_WY], quad_ref[qi, Q_WZ]
             alpha = (wx * (rely * vz - relz * vy)
                      + wy * (relz * vx - relx * vz)
                      + wz * (relx * vy - rely * vx))
@@ -150,127 +156,113 @@ def _make_kernel(n_spheres: int, n_quads: int, moving: bool):
                     jnp.where(take, n_spheres + qi, best_i))
 
         if n_quads:
-            best_t, best_i = jax.lax.fori_loop(0, n_quads, qbody,
-                                               (best_t, best_i))
-
-        t_ref[:] = jnp.where(best_i >= 0, best_t, T_MAX)
-        idx_ref[:] = best_i
+            best = jax.lax.fori_loop(0, n_quads, qbody, best)
+        best_t, best_i = best
+        t_ref[...] = jnp.where(best_i >= 0, best_t, T_MAX)
+        idx_ref[...] = best_i
 
     return kernel
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("n_quads", "moving", "interpret"))
-def _sphere_hit_raw(sph_tab, quad_tab, ox, oy, oz, dx, dy, dz, tm, *,
-                    n_quads: int, moving: bool, interpret: bool):
-    """All ray components are [R//128, 128]; returns (t, idx) same shape."""
-    rows = ox.shape[0]
-    grid = (rows // TILE_ROWS,)
-    ray_spec = pl.BlockSpec((TILE_ROWS, TILE_LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
+@functools.partial(jax.jit, static_argnames=(
+    "n_spheres", "n_quads", "moving", "interpret"))
+def _closest_hit_raw(sph_tab, quad_tab, ox, oy, oz, dx, dy, dz, tm, *,
+                     n_spheres: int, n_quads: int, moving: bool,
+                     interpret: bool):
+    """Ray components are [R] with R a multiple of BLOCK_RAYS; returns
+    (t [R], idx [R])."""
+    ray_spec = pl.BlockSpec((BLOCK_RAYS,), lambda i: (i,))
     return pl.pallas_call(
-        _make_kernel(sph_tab.shape[0], n_quads, moving),
-        out_shape=(
-            jax.ShapeDtypeStruct(ox.shape, _F32),
-            jax.ShapeDtypeStruct(ox.shape, jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((sph_tab.shape[0], S_COLS), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((quad_tab.shape[0], quad_tab.shape[1]),
-                         lambda i: (0, 0), memory_space=pltpu.SMEM),
-            ray_spec, ray_spec, ray_spec, ray_spec, ray_spec, ray_spec,
-            ray_spec,
-        ],
+        _make_kernel(n_spheres, n_quads, moving),
+        out_shape=(jax.ShapeDtypeStruct(ox.shape, _F32),
+                   jax.ShapeDtypeStruct(ox.shape, jnp.int32)),
+        grid=(ox.shape[0] // BLOCK_RAYS,),
+        in_specs=[pl.BlockSpec(sph_tab.shape, lambda i: (0, 0)),
+                  pl.BlockSpec(quad_tab.shape, lambda i: (0, 0))]
+        + [ray_spec] * 7,
         out_specs=(ray_spec, ray_spec),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
+        name="closest_hit_spheres",
     )(sph_tab, quad_tab, ox, oy, oz, dx, dy, dz, tm)
 
 
 def sphere_kernel_eligible(scene: Scene) -> bool:
-    """The hybrid closest-hit kernel covers spheres + quads in-kernel (quad
-    table must fit SMEM: <= 256 quads — exceeding it measured slower via
-    VMEM scalar reads), constant media via the XLA free-flight sampler, and
-    all texture kinds outside the kernel.  Box-primitive scenes route to the
-    megakernel (TPU) or the XLA path instead."""
-    return ("boxes" not in scene.features
-            and ("quads" not in scene.features
-                 or scene.quad_q.shape[0] <= 256))
+    """Spheres and quads resolve in the kernel, constant media with the XLA
+    free-flight sampler after it, textures outside it; box primitives have
+    no kernel loop and take the XLA path."""
+    return "boxes" not in scene.features
 
 
-def closest_hit_spheres_pallas(o, d, time, scene: Scene, *,
-                               u_media=None,
-                               interpret: bool | None = None):
-    """Full closest-hit + material attributes for any scene.
+def kernel_hits(o, d, time, scene: Scene, *, interpret: bool = False):
+    """Raw kernel result for [R] rays: (t [R], idx [R]); idx < S is a
+    sphere, idx >= S the quad idx - S, -1 a miss (t = T_MAX).  Pads R to
+    a multiple of BLOCK_RAYS; padding lanes get d = (0, 0, 1) so |d|^2
+    stays nonzero."""
+    R = o.shape[0]
+    Rpad = -(-R // BLOCK_RAYS) * BLOCK_RAYS
 
-    Spheres + quads resolve in the Pallas kernel (winner index encodes the
-    class: idx < S is a sphere, idx >= S a quad); constant media are
-    composed on top with the XLA free-flight sampler (needs ``u_media``
-    [R, n_media] uniforms when the scene has media, matching
-    intersect.closest_hit); records/materials/textures are assembled with
-    fused XLA gathers.  Returns (HitRecord, MatRecord).
+    def lanes(x):
+        return jnp.pad(x, (0, Rpad - R)) if Rpad != R else x
+
+    dpad = jnp.pad(d, ((0, Rpad - R), (0, 0)))
+    if Rpad != R:
+        dpad = dpad.at[R:, 2].set(1.0)
+    has_quads = "quads" in scene.features
+    quad_tab = (pack_quad_table(scene) if has_quads
+                else jnp.zeros((1, Q_COLS), _F32))
+    t, idx = _closest_hit_raw(
+        _pad_rows_pow2(pack_sphere_table(scene)), _pad_rows_pow2(quad_tab),
+        lanes(o[:, 0]), lanes(o[:, 1]), lanes(o[:, 2]),
+        dpad[:, 0], dpad[:, 1], dpad[:, 2], lanes(time),
+        n_spheres=scene.sph_center.shape[0],
+        n_quads=quad_tab.shape[0] if has_quads else 0,
+        moving="motion" in scene.features, interpret=interpret)
+    return t[:R], idx[:R]
+
+
+def closest_hit_spheres_pallas(o, d, time, scene: Scene, *, u_media=None,
+                               interpret: bool = False):
+    """Full closest hit + material attributes for a box-free scene.
+
+    Spheres and quads resolve in the kernel (:func:`kernel_hits`); constant
+    media are composed on top with the XLA free-flight sampler (needs
+    ``u_media`` [R, n_media] uniforms when the scene has media, matching
+    intersect.closest_hit); records, materials and textures are assembled
+    with XLA gathers.  ``interpret=True`` runs the kernel in the Pallas
+    interpreter (CPU tests).  Returns (HitRecord, MatRecord).
     """
     from .intersect import hit_media
     from .materials import MatRecord
     from .textures import texture_value
 
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
     R = o.shape[0]
-    Rpad = -(-R // TILE_R) * TILE_R
-    rows = Rpad // TILE_LANES
-
-    def plane(x):
-        if Rpad != R:
-            x = jnp.pad(x, (0, Rpad - R))
-        return x.reshape(rows, TILE_LANES)
-
-    moving = "motion" in scene.features
     has_quads = "quads" in scene.features
-
-    tab = pack_sphere_table(scene)
-    if has_quads:
-        from .pallas_megakernel import pack_quad_table
-
-        quad_tab = pack_quad_table(scene)
-        n_quads = quad_tab.shape[0]
-    else:
-        quad_tab = jnp.zeros((1, 32), _F32)
-        n_quads = 0
-    t2, idx2 = _sphere_hit_raw(
-        tab, quad_tab, plane(o[:, 0]), plane(o[:, 1]), plane(o[:, 2]),
-        plane(d[:, 0]), plane(d[:, 1]), plane(d[:, 2]), plane(time),
-        n_quads=n_quads, moving=moving, interpret=interpret,
-    )
-    S = tab.shape[0]
-    t = t2.reshape(-1)[:R]
-    idx = idx2.reshape(-1)[:R]
+    S = scene.sph_center.shape[0]
+    t, idx = kernel_hits(o, d, time, scene, interpret=interpret)
     hit = idx >= 0
     is_quad = idx >= S
     iw = jnp.where(hit & ~is_quad, idx, 0)
     qw = jnp.where(is_quad, idx - S, 0)
 
-    t_safe = jnp.where(hit, t, 1.0)
-    p = o + t_safe[:, None] * d
-
     # --- sphere record ---
     ctr = scene.sph_center[iw] + time[:, None] * scene.sph_cvel[iw]
     rad = scene.sph_radius[iw]
+    t = refine_sphere_t(o, d, ctr, rad, t, hit & ~is_quad)
+    p = o + jnp.where(hit, t, 1.0)[:, None] * d
     outward_s = (p - ctr) / jnp.maximum(rad, 1e-30)[:, None]
     us, vs = sphere_uv(outward_s)
     mat_s = scene.sph_mat[iw]
 
     # --- quad record (quad.rs:64-87 planar coords) ---
     if has_quads:
-        qn = jnp.cross(scene.quad_u, scene.quad_v)
-        qnn = jnp.maximum(jnp.sum(qn * qn, axis=-1, keepdims=True), 1e-30)
-        qw_all = qn / qnn
-        qnormal_all = qn / jnp.sqrt(qnn)
+        w_all, n_all, _, _ = scene.quad_frames()
         rel = p - scene.quad_q[qw]
-        uq = jnp.sum(qw_all[qw] * jnp.cross(rel, scene.quad_v[qw]), axis=-1)
-        vq = jnp.sum(qw_all[qw] * jnp.cross(scene.quad_u[qw], rel), axis=-1)
-        outward = jnp.where(is_quad[:, None], qnormal_all[qw], outward_s)
+        uq = jnp.sum(w_all[qw] * jnp.cross(rel, scene.quad_v[qw]), axis=-1)
+        vq = jnp.sum(w_all[qw] * jnp.cross(scene.quad_u[qw], rel), axis=-1)
+        outward = jnp.where(is_quad[:, None], n_all[qw], outward_s)
         u = jnp.where(is_quad, uq, us)
         v = jnp.where(is_quad, vq, vs)
         mat_id = jnp.where(is_quad, scene.quad_mat[qw], mat_s)
@@ -290,8 +282,7 @@ def closest_hit_spheres_pallas(o, d, time, scene: Scene, *,
         better = anym & (tm_ < t_full)
         t_full = jnp.where(better, tm_, t_full)
         hit = hit | better
-        p = jnp.where(better[:, None],
-                      o + t_full[:, None] * d, p)
+        p = jnp.where(better[:, None], o + t_full[:, None] * d, p)
         outward = jnp.where(better[:, None],
                             jnp.asarray([1.0, 0.0, 0.0], o.dtype)[None, :],
                             outward)
@@ -301,10 +292,8 @@ def closest_hit_spheres_pallas(o, d, time, scene: Scene, *,
         v = jnp.where(better, 0.0, v)
 
     normal = jnp.where(front[:, None], outward, -outward)
-    rec = HitRecord(
-        valid=hit, t=t_full, p=p, normal=normal,
-        front_face=front, mat=mat_id, u=u, v=v,
-    )
+    rec = HitRecord(valid=hit, t=t_full, p=p, normal=normal,
+                    front_face=front, mat=mat_id, u=u, v=v)
     mat = MatRecord(
         kind=scene.mat_kind[mat_id],
         albedo=texture_value(scene.mat_tex[mat_id], u, v, p, scene),

@@ -1,11 +1,11 @@
-"""Perlin noise on TPU: vectorized lattice gathers.
+"""Perlin noise: vectorized lattice gathers.
 
 Reference: ``src/books/the_next_week/perlin.rs`` — 256-entry random unit
 vector lattice, three xor-combined permutation tables, trilinear
 Hermite-smoothed interpolation (perlin.rs:25-98), and 7-octave turbulence
 (perlin.rs:50-62).  Tables are built host-side with a fixed seed (see
 ``scene._make_perlin``); evaluation is 8 gathers over a 256-entry table per
-point — the table lives comfortably in VMEM.
+point from a table small enough to stay in cache.
 """
 
 from __future__ import annotations

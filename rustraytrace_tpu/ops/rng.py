@@ -2,7 +2,7 @@
 
 The reference uses per-thread stateful RNG on CPU (thread-local SmallRng,
 ``src/books/*/rtweekend.rs:9-11``) and hash-seeded xorshift32 on GPU
-(``src/gpu/renderer.wgsl:51-75``).  Neither maps to TPU; here every draw comes
+(``src/gpu/renderer.wgsl:51-75``).  Neither suits batched vector code; here every draw comes
 from ``jax.random`` threefry keys folded over (pass, bounce) so renders are
 reproducible and shard-invariant.
 

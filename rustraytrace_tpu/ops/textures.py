@@ -1,7 +1,7 @@
 """Texture evaluation: compute-all-kinds-and-select.
 
 Reference enum dispatch ``TextureObject::value`` (src/books/the_next_week/
-texture.rs:159-168) becomes masked evaluation on the VPU: each texture kind is
+texture.rs:159-168) becomes masked vector evaluation: each texture kind is
 evaluated for every ray and the per-ray kind selects the result.  Static
 feature flags on the Scene skip whole kinds (noise / image) at trace time when
 a scene doesn't use them, so e.g. Book-1 scenes pay nothing for Perlin.
@@ -19,9 +19,7 @@ def image_texel(scene: Scene, img_id: jnp.ndarray, u: jnp.ndarray,
                 v: jnp.ndarray) -> jnp.ndarray:
     """Clamped-UV nearest-texel lookup, v flipped (texture.rs:89-109).
 
-    img_id/u/v: any matching batch shape; returns [..., 3].  Shared by the
-    general texture evaluator and the wavefront kernel's deferred texel
-    resolve (ops/pallas_wavefront.py)."""
+    img_id/u/v: any matching batch shape; returns [..., 3]."""
     hw = scene.image_hw[img_id]  # [...,2]
     h = hw[..., 0].astype(u.dtype)
     w = hw[..., 1].astype(u.dtype)
@@ -29,11 +27,8 @@ def image_texel(scene: Scene, img_id: jnp.ndarray, u: jnp.ndarray,
     vc = 1.0 - jnp.clip(v, 0.0, 1.0)
     i = jnp.minimum((uc * w).astype(jnp.int32), hw[..., 1] - 1)
     j = jnp.minimum((vc * h).astype(jnp.int32), hw[..., 0] - 1)
-    # single row-take on a linearized index: 5.0ms vs 6.9ms per 640k-texel
-    # gather on the v5e for images[img_id, j, i] (in-graph fori_loop
-    # measurement; XLA lowers the multi-operand advanced index to a approx
-    # 28% slower composite gather).  This fetch dominates image-heavy
-    # wavefront segments, so the formulation matters.
+    # one row-take on a linearized index (a single 1-D gather instead of
+    # the multi-operand advanced index images[img_id, j, i])
     IH, IW = scene.images.shape[1], scene.images.shape[2]
     lin = (img_id * IH + j) * IW + i
     return jnp.take(scene.images.reshape(-1, 3), lin, axis=0)

@@ -90,40 +90,23 @@ def _disc_terms(u, base, du, dv, o, time, C, V, r):
 
     u: [R,2] jitter; base/du/dv: ray-direction affine frame ([R,3]/[3]/[3]);
     o: [R,3] origins; time: [R]; C/V/r: sphere arrays.
-    Returns (disc [R,N], gx [R,N], gy [R,N]).
+    Returns (disc [R,N], gx [R,N], gy [R,N]).  Direct quadric form, the
+    same as ``intersect.hit_spheres`` (oc = cc - o before any product).
     """
-    hi = jax.lax.Precision.HIGHEST
     d = base + u[:, 0:1] * du[None, :] + u[:, 1:2] * dv[None, :]  # [R,3]
-    tcol = time[:, None]
-
-    d_C = jnp.dot(d, C.T, precision=hi)  # [R,N]
-    d_V = jnp.dot(d, V.T, precision=hi)
-    o_C = jnp.dot(o, C.T, precision=hi)
-    o_V = jnp.dot(o, V.T, precision=hi)
-    C2 = jnp.sum(C * C, axis=-1)
-    CV = jnp.sum(C * V, axis=-1)
-    V2 = jnp.sum(V * V, axis=-1)
-    o2 = jnp.sum(o * o, axis=-1)
-    d_o = jnp.sum(d * o, axis=-1)
-    a = jnp.sum(d * d, axis=-1)
-
-    h = d_C + tcol * d_V - d_o[:, None]  # [R,N]
-    cc2 = C2[None, :] + 2.0 * tcol * CV[None, :] + (tcol * tcol) * V2[None, :]
-    c0 = cc2 - 2.0 * (o_C + tcol * o_V) + o2[:, None] - (r * r)[None, :]
+    oc = (C[None, :, :] + time[:, None, None] * V[None, :, :]
+          - o[:, None, :])  # [R,N,3]
+    a = jnp.sum(d * d, axis=-1)  # [R]
+    h = jnp.sum(d[:, None, :] * oc, axis=-1)  # [R,N]
+    c0 = jnp.sum(oc * oc, axis=-1) - (r * r)[None, :]
     disc = h * h - a[:, None] * c0
 
-    # analytic u-gradients: ∂d/∂u_x = du, ∂h/∂u_x = du·cc - du·o,
+    # analytic u-gradients: ∂d/∂u_x = du, ∂h/∂u_x = du·oc,
     # ∂a/∂u_x = 2 d·du, c0 independent of u.
-    du_C = jnp.dot(du, C.T)  # [N]
-    du_V = jnp.dot(du, V.T)
-    dv_C = jnp.dot(dv, C.T)
-    dv_V = jnp.dot(dv, V.T)
-    du_o = jnp.dot(o, du)  # [R]
-    dv_o = jnp.dot(o, dv)
-    h_x = du_C[None, :] + tcol * du_V[None, :] - du_o[:, None]
-    h_y = dv_C[None, :] + tcol * dv_V[None, :] - dv_o[:, None]
-    a_x = 2.0 * jnp.dot(d, du)  # [R]
-    a_y = 2.0 * jnp.dot(d, dv)
+    h_x = jnp.sum(du[None, None, :] * oc, axis=-1)  # [R,N]
+    h_y = jnp.sum(dv[None, None, :] * oc, axis=-1)
+    a_x = 2.0 * jnp.sum(d * du[None, :], axis=-1)  # [R]
+    a_y = 2.0 * jnp.sum(d * dv[None, :], axis=-1)
     gx = 2.0 * h * h_x - a_x[:, None] * c0
     gy = 2.0 * h * h_y - a_y[:, None] * c0
     return disc, gx, gy

@@ -1,11 +1,12 @@
 """Multi-host rendering: jax.distributed bring-up + cross-host assembly.
 
-The reference is single-process (SURVEY.md §2.7); the TPU build scales over
-pod slices with the standard JAX multi-controller recipe:
+The reference is single-process (SURVEY.md §2.7); this build scales over
+several hosts with the standard JAX multi-controller recipe:
 
 * every host calls :func:`initialize` (coordinator address via env or args),
 * :func:`global_mesh` builds the ('px', 'spp') mesh over ALL devices in the
-  job — shard_map + psum then ride ICI within a slice and DCN across,
+  job — shard_map + psum then ride the device interconnect within a host
+  and the network across hosts,
 * :func:`render_image_multihost` runs the same sharded pass loop as
   ``parallel.render.render_image_sharded`` and gathers the framebuffer to
   every host with ``process_allgather`` (host 0 writes the image).
@@ -36,7 +37,7 @@ def initialize(coordinator_address: Optional[str] = None,
     """Bring up jax.distributed when running multi-process; no-op otherwise.
 
     With no arguments, relies on the standard env auto-detection
-    (JAX_COORDINATOR_ADDRESS etc. / TPU pod metadata)."""
+    (JAX_COORDINATOR_ADDRESS etc.)."""
     if num_processes is not None and num_processes <= 1:
         return
     if coordinator_address is None and num_processes is None:
@@ -62,7 +63,7 @@ def make_assemble(mesh) -> "callable":
 
     A px-sharded global array is not fully addressable on any one host, so
     ``np.asarray`` alone fails multi-process.  The assembler reshards to a
-    fully-REPLICATED layout (an all-gather over ICI/DCN placed by XLA) and
+    fully-REPLICATED layout (an all-gather placed by XLA) and
     only then copies to host — every host gets the identical framebuffer.
     Single-process it degenerates to a plain device->host copy."""
     from jax.sharding import NamedSharding, PartitionSpec as P

@@ -4,13 +4,13 @@ Pixels are blocked across the ``px`` axis (each device owns a contiguous run
 of flattened pixel indices — the scanline-block analog of the reference's
 rayon rows, ``src/books/*/camera.rs:66-88``) and samples across the ``spp``
 axis (the analog of the reference's sequential GPU pass loop,
-``src/gpu/mod.rs:444-481``, here executed concurrently on different chips and
-reduced with ``psum`` over ICI).
+``src/gpu/mod.rs:444-481``, here executed concurrently on different devices
+and reduced with ``psum``).
 
 Determinism: every (sample, chunk-of-pixels) unit derives its key as
 ``fold_in(fold_in(key, global_sample_idx), chunk_start_pixel)`` — the SAME
-derivation as the single-chip pass loop, and independent of the mesh shape —
-so an N-chip render is bit-identical to the 1-chip render when spp is
+derivation as the single-device pass loop, and independent of the mesh shape —
+so an N-device render is bit-identical to the 1-device render when spp is
 unsharded AND both runs use the same effective chunk size (the chunk start
 pixels then coincide; pass ``chunk <= ceil(n_pix / n_px_shards)`` rounded to
 256 to guarantee it), and equal up to f32 summation order when spp is
@@ -194,16 +194,12 @@ def render_contract_sharded(scene: Scene, cam: CameraParams, key: jax.Array,
     materializing the radiance image: each chunk's radiance contracts
     against its ``ct`` slice immediately and the scan carries one scalar.
 
-    This exists for the TPU gradient path (round 5): the remote XLA
-    compiler's fusion pass SIGILLs on any program that keeps the warp's
-    forward trace live next to its backward (value_and_grad, MSE losses,
-    image-valued outputs feeding the loss — all crash; see
-    scripts/diag_diff_tpu.py for the bisect matrix).  A grad-ONLY program of
-    this contraction — primal dead-coded, cotangent ``ct`` an argument —
-    is the one differentiable-with-warp shape the compiler survives, and
-    ``grad(render_contract_sharded)(p, ct)`` with
+    It is the backward half of ``diff.value_and_grad_loss``'s two-program
+    split: a grad-ONLY program of this contraction — primal dead-coded,
+    cotangent ``ct`` an argument — keeps the image buffer out of the
+    backward program, and ``grad(render_contract_sharded)(p, ct)`` with
     ``ct = dLoss/dimage_sum`` IS the exact loss gradient when the keys
-    match the forward render that produced the loss (diff.value_and_grad_loss).
+    match the forward render that produced the loss.
 
     ``ct``: [H, W, 3] cotangent w.r.t. the radiance SUM (not the mean).
     ``warp_primary``: as in ``render_pass_sharded`` — truthy routes
@@ -299,110 +295,31 @@ def render_contract_sharded(scene: Scene, cam: CameraParams, key: jax.Array,
     return sharded(scene, cam, key, pix, ct_flat)
 
 
-def resolve_sharded_backend(scene: Scene, integrator: str, mesh: Mesh,
-                            backend: str = "auto",
-                            _mk_eligible=None, _wf_eligible=None) -> str:
-    """Route a sharded render to its per-pass kernel; the sharded analog of
-    ``render.resolve_backend`` and the ONE place its guard logic lives.
-
-    Contract (mirrors the single-chip router, ``render.py:100-127``): the
-    wavefront dispatcher handles BOTH 'path' and 'mis' — its persist loop
-    carries in-kernel NEE/MIS and its sharded entry already threads
-    ``mis=integrator == 'mis'`` (``parallel/megakernel.py``
-    render_image_sharded_megakernel) — so the guard only rejects integrators
-    neither kernel family implements.  (Round 3 shipped a stale guard here
-    that raised on wavefront+MIS, a combination its own auto-routing
-    selected; tests/test_parallel.py::test_sharded_routing_decision_table
-    pins the decision table mesh-free so CPU CI catches any recurrence.)
-
-    ``_mk_eligible`` / ``_wf_eligible`` inject the eligibility predicates
-    (signature ``(scene, integrator, mesh) -> bool``) so the decision table
-    is testable without TPU devices; production callers leave them None.
-    """
-    from .megakernel import (megakernel_shard_eligible,
-                             wavefront_shard_eligible)
-
-    mk = _mk_eligible or megakernel_shard_eligible
-    wf = _wf_eligible or wavefront_shard_eligible
-    if backend == "auto":
-        if mk(scene, integrator, mesh):
-            # same collapsed routing as render.resolve_backend: the
-            # persistent-respawn kernel won every measured scene, so
-            # path -> 'wavefront' and mis -> 'megakernel' (both respawn)
-            backend = "wavefront" if integrator == "path" else "megakernel"
-        elif wf(scene, integrator, mesh):
-            backend = "wavefront"
-        else:
-            backend = "xla"
-    if backend not in ("xla", "megakernel", "wavefront"):
-        raise ValueError(
-            f"sharded rendering supports backends 'auto', 'xla', "
-            f"'megakernel', 'wavefront'; got {backend!r}")
-    if backend in ("megakernel", "wavefront") and integrator not in (
-            "path", "mis"):
-        raise ValueError(
-            f"backend={backend!r} supports integrators 'path' and 'mis'; "
-            f"use 'xla' for integrator={integrator!r}")
-    return backend
-
-
 def render_image_sharded(scene: Scene, cfg: RenderConfig, *, mesh: Mesh,
                          integrator: str = "path", chunk: int = 65536,
                          progress=None, accum_state: Optional[dict] = None,
                          backend: str = "auto", on_pass=None,
-                         assemble=None, fallback: bool = True):
+                         assemble=None):
     """Full sharded render: host pass loop, psum'd accumulation, finalize.
 
     The sharded analog of ``render.render_image``; returns
-    (image_u8 [H,W,3], accum_state).  ``on_pass(state)`` fires at every pass
-    boundary with a resumable {accum, spp_done} dict (checkpointing — a
-    killed sharded run otherwise loses all progress).
+    (image_u8 [H,W,3], accum_state).  ``backend`` is routed by
+    ``render.resolve_backend``, so a pixel-sharded render traces exactly
+    what the single-device render traces.  ``on_pass(state)`` fires at
+    every pass boundary with a resumable {accum, spp_done} dict
+    (checkpointing — a killed sharded run otherwise loses all progress).
+    A failing pass raises.
 
     ``assemble(device_accum) -> np.ndarray`` materializes the final
     framebuffer; the default (plain ``np.asarray``) is correct single-host.
     Multi-host jobs must pass a cross-host gather (multihost.py does), since
     a px-sharded global array is not fully addressable on any one host.
-
-    ``fallback`` (default on): a failing kernel-backed pass loop degrades to
-    the sharded XLA loop, resuming from the last completed pass boundary
-    (the on_pass state) — the sharded analog of ``render.render_image``'s
-    GPU->CPU-style fallback (``src/main.rs:73-85``).
     """
-    import sys
-
     import numpy as np
 
-    backend = resolve_sharded_backend(scene, integrator, mesh, backend)
-    if backend in ("megakernel", "wavefront"):
-        from .megakernel import render_image_sharded_megakernel
+    from ..render import DEFAULT_SPP_PER_PASS, resolve_backend
 
-        # capture every completed pass so a mid-render kernel failure can
-        # resume on XLA from the last pass boundary instead of restarting
-        last_state = {"state": accum_state}
-
-        def capture(state):
-            last_state["state"] = state
-            if on_pass is not None:
-                on_pass(state)
-
-        try:
-            return render_image_sharded_megakernel(
-                scene, cfg, mesh=mesh, integrator=integrator,
-                progress=progress, accum_state=accum_state, on_pass=capture,
-                backend=backend)
-        except Exception as e:  # noqa: BLE001 — any device/lowering failure
-            if not fallback:
-                raise
-            print(f"# sharded pass loop failed on backend={backend!r} "
-                  f"({e}); falling back to 'xla' from "
-                  f"spp_done={0 if last_state['state'] is None else last_state['state']['spp_done']}",
-                  file=sys.stderr)
-            return render_image_sharded(
-                scene, cfg, mesh=mesh, integrator=integrator, chunk=chunk,
-                progress=progress, accum_state=last_state["state"],
-                backend="xla", on_pass=on_pass, assemble=assemble,
-                fallback=False)
-
+    backend = resolve_backend(scene, integrator, backend)
     cam = derive_camera(cfg)
     h, w = cfg.image_height, cfg.image_width
 
@@ -419,9 +336,7 @@ def render_image_sharded(scene: Scene, cfg: RenderConfig, *, mesh: Mesh,
 
     key = jax.random.key(cfg.seed)
     n_spp = mesh.shape["spp"]
-    from ..render import _DEFAULT_SPP_PER_PASS
-
-    per_pass = _ceil_to(cfg.spp_per_pass or _DEFAULT_SPP_PER_PASS, n_spp)
+    per_pass = _ceil_to(cfg.spp_per_pass or DEFAULT_SPP_PER_PASS, n_spp)
 
     while done < spp_total:
         this = min(per_pass, _ceil_to(spp_total - done, n_spp))
@@ -430,6 +345,7 @@ def render_image_sharded(scene: Scene, cfg: RenderConfig, *, mesh: Mesh,
             width=w, height=h, spp=this, max_depth=cfg.max_depth,
             mesh=mesh, integrator=integrator, chunk=chunk,
             stratified=stratified, sqrt_spp=sqrt_spp, sample_offset=done,
+            backend=backend,
         )
         done += spp_traced(this, mesh)
         if progress is not None:

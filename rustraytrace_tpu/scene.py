@@ -3,7 +3,7 @@
 The reference keeps scenes as an ``Arc<HittableObject>`` object graph
 (``src/books/*/hittable.rs:45-85``) on CPU and lowers the Book-1 scene to flat
 SoA buffers for the GPU (``SphereGpu``/``MaterialGpu``/``CameraUniform``,
-``src/gpu/mod.rs:29-42,124-301``).  The TPU build generalizes the GPU path:
+``src/gpu/mod.rs:29-42,124-301``).  This build generalizes the GPU path:
 EVERY scene — all primitive classes, materials, textures, lights — is compiled
 host-side into one ``Scene`` pytree of jnp arrays.  This pytree is also the
 differentiable parameter vector (sphere centers/radii, quad frames, albedos,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -60,71 +61,55 @@ def load_checkpoint(path: str, cfg, scene) -> Optional[dict]:
 
 
 # ---------------------------------------------------------------------------
-# Orbax train-state checkpoints (inverse rendering)
+# Train-state checkpoints (inverse rendering)
 # ---------------------------------------------------------------------------
+
+TRAIN_STATE_FILE = "train_state.npz"
+
+
+def train_state_path(ckpt_dir: str) -> str:
+    return os.path.join(ckpt_dir, TRAIN_STATE_FILE)
+
 
 def save_train_checkpoint(path: str, *, step: int, params, opt_state,
                           key) -> None:
-    """Orbax checkpoint of a diff.fit train state (params, optimizer state,
-    step, RNG key) for long inverse-rendering runs — the production-grade
-    analog of the render-accumulation .npz above.  ``path`` is a directory
-    (Orbax layout); an existing checkpoint at the path is replaced."""
-    import os
-    import shutil
-
+    """Persist a diff.fit train state (params, optimizer state, step, RNG
+    key) for long inverse-rendering runs — the analog of the
+    render-accumulation .npz above.  ``path`` is a directory; the flattened
+    state pytree goes to ``<path>/train_state.npz``, written to a temporary
+    file and renamed so a killed run never leaves a torn checkpoint."""
     import jax
-    import jax.numpy as jnp
-    import orbax.checkpoint as ocp
 
-    path = os.path.abspath(path)
-    if os.path.exists(path):
-        # replace ONLY something that is a checkpoint (Orbax writes
-        # _CHECKPOINT_METADATA) or an empty directory — never rmtree an
-        # arbitrary user path (a typo'd checkpoint_dir pointed at real
-        # data would otherwise destroy it on the first checkpoint)
-        is_ckpt = os.path.exists(
-            os.path.join(path, "_CHECKPOINT_METADATA"))
-        if not is_ckpt and (not os.path.isdir(path) or os.listdir(path)):
-            raise ValueError(
-                f"refusing to overwrite {path!r}: it exists but is not an "
-                "Orbax checkpoint written by save_train_checkpoint")
-        shutil.rmtree(path)
-    tree = {"step": jnp.asarray(step, jnp.int32), "params": params,
+    os.makedirs(path, exist_ok=True)
+    tree = {"step": np.asarray(step, np.int32), "params": params,
             "opt_state": opt_state,
             "key_data": jax.random.key_data(key)}
-    ck = ocp.StandardCheckpointer()
-    ck.save(path, tree)
-    ck.wait_until_finished()
+    leaves = {f"leaf_{i}": np.asarray(x)
+              for i, x in enumerate(jax.tree.leaves(tree))}
+    final = train_state_path(path)
+    tmp = final + ".tmp.npz"
+    np.savez(tmp, **leaves)
+    os.replace(tmp, final)
 
 
 def load_train_checkpoint(path: str, *, params_like, opt_state_like):
     """Restore a train state saved by :func:`save_train_checkpoint`.
 
     ``params_like`` / ``opt_state_like`` supply the pytree structure (build
-    them exactly as diff.fit does: extract_params + opt.init) so Orbax
-    restores optimizer NamedTuples instead of raw nests.  Returns
-    ``(step, params, opt_state, key)``."""
-    import os
-
+    them exactly as diff.fit does: extract_params + opt.init) so optimizer
+    NamedTuples come back as such.  Returns ``(step, params, opt_state,
+    key)``."""
     import jax
     import jax.numpy as jnp
-    import jax.tree_util as jtu
-    import orbax.checkpoint as ocp
 
-    like = {"step": jnp.asarray(0, jnp.int32), "params": params_like,
+    like = {"step": np.asarray(0, np.int32), "params": params_like,
             "opt_state": opt_state_like,
             "key_data": jax.random.key_data(jax.random.key(0))}
-    abstract = jtu.tree_map(ocp.utils.to_shape_dtype_struct, like)
-    ck = ocp.StandardCheckpointer()
-    restored = ck.restore(os.path.abspath(path), abstract)
-    # decommit: Orbax pins restored arrays to one device, which a
-    # multi-device shard_map train step then rejects; round-tripping
-    # through host memory yields uncommitted arrays (trees are KBs)
-    import numpy as np
-
-    decommit = lambda t: jtu.tree_map(
-        lambda a: jnp.asarray(np.asarray(a)), t)
-    key = jax.random.wrap_key_data(
-        jnp.asarray(np.asarray(restored["key_data"])))
-    return (int(restored["step"]), decommit(restored["params"]),
-            decommit(restored["opt_state"]), key)
+    treedef = jax.tree.structure(like)
+    with np.load(train_state_path(path), allow_pickle=False) as z:
+        leaves = [jnp.asarray(z[f"leaf_{i}"])
+                  for i in range(treedef.num_leaves)]
+    restored = jax.tree.unflatten(treedef, leaves)
+    key = jax.random.wrap_key_data(restored["key_data"])
+    return (int(restored["step"]), restored["params"],
+            restored["opt_state"], key)

@@ -56,7 +56,10 @@ def write_image(img_u8: np.ndarray, path: Optional[str] = None, fmt: str = "auto
 
             Image.fromarray(img_u8).save(path)
         except ImportError:
-            with open(path.rsplit(".", 1)[0] + ".ppm", "wb") as f:
+            ppm = path.rsplit(".", 1)[0] + ".ppm"
+            print(f"PNG output needs Pillow, which is not installed; "
+                  f"wrote {ppm} instead", file=sys.stderr)
+            with open(ppm, "wb") as f:
                 f.write(ppm_p6_bytes(img_u8))
     else:
         raise ValueError(f"unknown image format: {fmt}")

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Instrumented inverse-rendering fit: logs params/grad norms per step to
-find where/why the recovery diverges (round 5; the gate failed at r4 HEAD).
+find where/why the recovery diverges.
 """
 
 import sys
 
 import jax
 
-if "tpu" not in sys.argv:
+if "gpu" not in sys.argv:  # pass "gpu" to run on the card
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np

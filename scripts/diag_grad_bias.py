@@ -7,7 +7,7 @@ import sys
 
 import jax
 
-if "tpu" not in sys.argv:
+if "gpu" not in sys.argv:  # pass "gpu" to run on the card
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np

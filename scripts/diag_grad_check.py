@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Compare value_and_grad_loss output between platforms / against FD.
 
-    python scripts/diag_grad_check.py [cpu|tpu] [fd]
+    python scripts/diag_grad_check.py [cpu|gpu] [fd]
 """
 
 import sys
@@ -10,7 +10,7 @@ import numpy as np
 
 
 def main() -> int:
-    dev = sys.argv[1] if len(sys.argv) > 1 else "tpu"
+    dev = sys.argv[1] if len(sys.argv) > 1 else "gpu"
     import jax
 
     if dev == "cpu":

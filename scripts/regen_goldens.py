@@ -7,8 +7,8 @@ Run this ONLY when integrator/intersection/RNG semantics change on purpose:
     python -m pytest tests/test_goldens.py -q  # must pass afterwards
 
 Goldens are tiny XLA-path renders with a fixed key on the CPU backend (the
-test conftest forces CPU; this script does the same so regen == test
-environment).  The CASES table lives in tests/test_goldens.py and is imported
+tests run with JAX_PLATFORMS=cpu; this script pins the CPU too, so regen ==
+test environment).  The CASES table lives in tests/test_goldens.py and is imported
 here so the two can never drift apart.
 """
 

@@ -159,7 +159,7 @@ def test_make_train_step_runs(mesh):
 
 
 def test_fit_checkpoint_resume(mesh, tmp_path):
-    """Orbax train-state checkpointing: a run checkpointed at step N and
+    """Train-state checkpointing (.npz): a run checkpointed at step N and
     resumed produces the same parameters as the uninterrupted run (the
     optimizer state, RNG key, and step counter all round-trip)."""
     scene = _lambertian_scene(albedo=(0.3, 0.6, 0.2))
@@ -275,12 +275,10 @@ def test_fit_recovers_ior(mesh):
 
 
 def test_value_and_grad_loss_matches_fused_vag(mesh):
-    """The TPU-safe two-program split (value_and_grad_loss: forward for
+    """The two-program split (value_and_grad_loss: forward for
     loss+cotangent, grad-only contraction for the gradient) must equal the
     fused jax.value_and_grad(image_loss) — same keys => same samples =>
-    the chain rule through a fixed cotangent is exact, not approximate.
-    (The fused form compiles on CPU, where this test runs; on the TPU it
-    SIGILLs the remote compiler, which is why the split exists.)"""
+    the chain rule through a fixed cotangent is exact, not approximate."""
     from rustraytrace_tpu.diff import extract_params, value_and_grad_loss
 
     scene = _lambertian_scene()
@@ -332,10 +330,9 @@ def test_value_and_grad_loss_box_pair_matches_fused(mesh):
 
 
 def test_value_and_grad_loss_kernel_forward(mesh):
-    """forward="kernel": the loss/cotangent forward runs on the fast
-    non-differentiable render path (here the sphere_kernel hybrid in
-    interpret mode — resolve_backend's CPU route) with an independent
-    stream and a box filter, while the gradient contraction program is
+    """forward="kernel": the loss/cotangent forward runs on the
+    non-differentiable render path (the auto route: XLA on the CPU) with
+    a box filter, while the gradient contraction program is
     unchanged.  The result is deliberately NOT the exact fused gradient;
     what must hold is that the decorrelated cotangent leaves the gradient a
     consistent descent direction: finite, same scale, high cosine

@@ -1,15 +1,7 @@
-"""Runtime backend fallback (the GPU->CPU analog of src/main.rs:73-85).
-
-The reference's CLI degrades a failing wgpu render to the CPU backend at
-runtime; the TPU build's analog degrades a failing kernel-backed pass loop
-to the XLA backend.  These tests exercise the REAL failure path on CPU: the
-megakernel genuinely cannot lower there (pltpu.prng_seed has no CPU/interpret
-lowering), so forcing ``backend="megakernel"`` produces an authentic
-runtime failure that the fallback must absorb — no mocks.
-"""
+"""No hidden fallback: a failing pass raises out of both pass loops, and
+the pass size is exactly what the config asks for."""
 
 import jax
-import numpy as np
 import pytest
 
 from rustraytrace_tpu import models
@@ -26,128 +18,70 @@ def small():
     return scene, cfg.replace(aspect_ratio=2.0), integ  # 32x16
 
 
-def test_render_image_falls_back_to_xla(small, capfd):
-    """A kernel backend that fails at runtime completes the render on XLA,
-    bit-identical to a pure-XLA render (the retried pass reuses the same
-    (key, sample_offset) stream)."""
+def test_render_image_pass_failure_raises(small, monkeypatch):
+    """A failing pass propagates; nothing re-runs it on another backend."""
+    import rustraytrace_tpu.render as r
+
+    calls = []
+
+    def failing(*a, **kw):
+        calls.append(kw["backend"])
+        raise RuntimeError("injected device failure")
+
+    monkeypatch.setattr(r, "render_pass", failing)
     scene, cfg, integ = small
-    ref, st_ref = render_image(scene, cfg, integrator=integ, backend="xla",
-                               chunk=256)
-    img, st = render_image(scene, cfg, integrator=integ,
-                           backend="megakernel", chunk=256)
-    assert st["spp_done"] == st_ref["spp_done"]
-    np.testing.assert_array_equal(img, ref)
-    err = capfd.readouterr().err
-    assert "falling back to 'xla'" in err
+    with pytest.raises(RuntimeError, match="injected device failure"):
+        render_image(scene, cfg, integrator=integ, chunk=256)
+    assert len(calls) == 1
 
 
-def test_render_image_fallback_off_raises(small):
-    scene, cfg, integ = small
-    with pytest.raises(Exception):
-        render_image(scene, cfg, integrator=integ, backend="megakernel",
-                     chunk=256, fallback=False)
-
-
-def test_render_image_sharded_falls_back(small, capfd):
-    """The sharded loop degrades to the sharded XLA loop and matches it."""
-    scene, cfg, integ = small
-    mesh = make_mesh(jax.devices())
-    ref, st_ref = render_image_sharded(scene, cfg, mesh=mesh,
-                                       integrator=integ, chunk=256,
-                                       backend="xla")
-    img, st = render_image_sharded(scene, cfg, mesh=mesh, integrator=integ,
-                                   chunk=256, backend="megakernel")
-    assert st["spp_done"] == st_ref["spp_done"]
-    np.testing.assert_array_equal(img, ref)
-    err = capfd.readouterr().err
-    assert "falling back to 'xla'" in err
-
-
-def test_sharded_fallback_resumes_from_pass_boundary(small):
-    """A failure AFTER completed passes resumes XLA from the captured
-    (accum, spp_done) state instead of restarting — the passes already
-    traced are kept (pass boundaries are checkpoints, SURVEY.md §5)."""
-    scene, cfg, integ = small
-    mesh = make_mesh(jax.devices())
-    ref, _ = render_image_sharded(scene, cfg, mesh=mesh, integrator=integ,
-                                  chunk=256, backend="xla")
-
+def test_render_image_sharded_pass_failure_raises(small, monkeypatch):
+    """The sharded loop keeps the completed passes' state and raises on the
+    failing one."""
     import rustraytrace_tpu.parallel.render as pr
 
-    calls = {"n": 0}
     real = pr.render_pass_sharded
+    calls = {"n": 0}
 
     def flaky(*a, **kw):
         calls["n"] += 1
         if calls["n"] == 2:
-            raise RuntimeError("injected device failure")
+            raise RuntimeError("injected mid-render device failure")
         return real(*a, **kw)
 
-    # route through the XLA sharded loop but fail its SECOND pass; with
-    # fallback enabled at the kernel layer only, the xla loop re-raises —
-    # so drive the megakernel entry with a monkeypatched inner loop instead
-    def failing_mk(*a, **kw):
-        on_pass = kw.get("on_pass")
-        # complete one real pass worth of state, then die
-        img_state = real(
-            scene, pr.derive_camera(cfg), jax.random.key(cfg.seed),
-            width=cfg.image_width, height=cfg.image_height,
-            spp=cfg.spp_per_pass, max_depth=cfg.max_depth, mesh=mesh,
-            integrator=integ, chunk=256)
-        if on_pass is not None:
-            on_pass({"accum": img_state, "spp_done": cfg.spp_per_pass})
-        raise RuntimeError("injected mid-render device failure")
+    monkeypatch.setattr(pr, "render_pass_sharded", flaky)
+    scene, cfg, integ = small
+    states = []
+    with pytest.raises(RuntimeError, match="mid-render"):
+        render_image_sharded(scene, cfg, mesh=make_mesh(jax.devices()),
+                             integrator=integ, chunk=256,
+                             on_pass=states.append)
+    assert [s["spp_done"] for s in states] == [2]
 
-    import rustraytrace_tpu.parallel.megakernel as pm
-    orig = pm.render_image_sharded_megakernel
-    pm.render_image_sharded_megakernel = failing_mk
-    try:
-        img, st = render_image_sharded(
-            scene, cfg, mesh=mesh, integrator=integ, chunk=256,
-            backend="megakernel")
-    finally:
-        pm.render_image_sharded_megakernel = orig
-    assert st["spp_done"] == cfg.samples_per_pixel
-    # resumed render == pure-XLA render: pass 1's state was produced by the
-    # same (key, offset) stream the XLA loop would use
-    np.testing.assert_array_equal(img, ref)
+
+def test_no_fallback_argument(small):
+    scene, cfg, integ = small
+    with pytest.raises(TypeError):
+        render_image(scene, cfg, integrator=integ, fallback=True)
 
 
 def test_effective_spp_per_pass_folding():
-    """Launch folding (BASELINE config 1 economics): with the AUTO default
-    (spp_per_pass=0) kernel backends fold small-image renders into one
-    launch; big images and the XLA backend keep the base batch.  An
-    EXPLICIT spp_per_pass is honored exactly in both directions
-    (ADVICE r4: the old floor silently coarsened small explicit batches)."""
+    """The AUTO default (spp_per_pass=0) renders 16 samples per pass on
+    every backend; an EXPLICIT spp_per_pass is honored exactly in both
+    directions, and no pass traces more samples than the render needs."""
     from rustraytrace_tpu.config import RenderConfig
-    from rustraytrace_tpu.render import effective_spp_per_pass
+    from rustraytrace_tpu.render import (DEFAULT_SPP_PER_PASS,
+                                         effective_spp_per_pass)
 
-    cfg = RenderConfig(image_width=400, aspect_ratio=16 / 9,
-                       samples_per_pixel=100)  # spp_per_pass=0 -> AUTO
-    n1 = 400 * 225
-    # config 1: one launch for the whole render
-    assert effective_spp_per_pass(cfg, "wavefront", 100, n1) == 100
-    # xla keeps the base batch (remat memory scales with it)
-    assert effective_spp_per_pass(cfg, "xla", 100, n1) == 16
-    # flagship: 64 spp in one launch (52M rays < 64M budget)
-    assert effective_spp_per_pass(cfg, "wavefront", 64, 1200 * 675) == 64
-    # 4K: the ray budget alone would give 7 spp/pass; the round-4 floor
-    # lifts it to 32 (warm-timed A/B is ~flat in pass size there — the
-    # floor buys a few percent and fewer pass boundaries)
-    assert effective_spp_per_pass(cfg, "wavefront", 1000, 3840 * 2160) == 32
-    # the AUTO-raise is capped at 1024...
-    big = RenderConfig(image_width=16, samples_per_pixel=100000)
-    assert effective_spp_per_pass(big, "wavefront", 100000, 256) == 1024
-    # ...an EXPLICIT larger batch is the user's call and is honored...
+    auto = RenderConfig(image_width=400, aspect_ratio=16 / 9,
+                        samples_per_pixel=100)
+    assert DEFAULT_SPP_PER_PASS == 16
+    assert effective_spp_per_pass(auto, 100) == 16
+    assert effective_spp_per_pass(auto, 5) == 5
     explicit = RenderConfig(image_width=16, samples_per_pixel=100000,
                             spp_per_pass=4096)
-    assert effective_spp_per_pass(explicit, "wavefront", 100000, 256) == 4096
-    # ...and so is an explicit SMALLER one (fine-grained checkpointing):
-    # no auto-raise, no floor — exactly what was asked, on every backend
-    fine = RenderConfig(image_width=400, aspect_ratio=16 / 9,
-                        samples_per_pixel=100, spp_per_pass=4)
-    assert effective_spp_per_pass(fine, "wavefront", 100, n1) == 4
-    assert effective_spp_per_pass(fine, "xla", 100, n1) == 4
-    fine4k = RenderConfig(image_width=3840, aspect_ratio=16 / 9,
-                          samples_per_pixel=1000, spp_per_pass=8)
-    assert effective_spp_per_pass(fine4k, "wavefront", 1000, 3840 * 2160) == 8
+    assert effective_spp_per_pass(explicit, 100000) == 4096
+    fine = RenderConfig(image_width=400, samples_per_pixel=100,
+                        spp_per_pass=4)
+    assert effective_spp_per_pass(fine, 100) == 4
+    assert effective_spp_per_pass(fine, 1) == 1

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from rustraytrace_tpu import models, render
-from tests.oracle import OracleSphere, render_oracle
+from oracle import OracleSphere, render_oracle
 
 W, H = 24, 14
 SPP = 400

@@ -157,3 +157,57 @@ def test_medium_box_rotated():
     tvals = np.asarray(rec.t)[np.asarray(rec.valid)]
     assert tvals.min() >= 5.0 - np.sqrt(2.0) - 1e-2
     assert tvals.max() <= 5.0 + np.sqrt(2.0) + 1e-2
+
+
+def _root64(o, d, tm, scene, idx):
+    """Float64 near-else-far root of sphere ``idx`` per ray."""
+    f8 = np.float64
+    o, d = np.asarray(o, f8), np.asarray(d, f8)
+    c = (np.asarray(scene.sph_center, f8)[idx]
+         + np.asarray(tm, f8)[:, None] * np.asarray(scene.sph_cvel, f8)[idx])
+    r = np.asarray(scene.sph_radius, f8)[idx]
+    oc = c - o
+    a = (d * d).sum(-1)
+    h = (d * oc).sum(-1)
+    sq = np.sqrt(np.maximum(h * h - a * ((oc * oc).sum(-1) - r * r), 0.0))
+    tn = (h - sq) / a
+    return np.where(tn > 1e-3, tn, (h + sq) / a)
+
+
+import pytest  # noqa: E402
+
+
+@pytest.mark.parametrize("name", ["book1_three_spheres",
+                                  "book1_random_spheres",
+                                  "book2_bouncing_spheres",
+                                  "book2_perlin_spheres"])
+def test_direct_form_matches_float64(name):
+    """hit_spheres' direct quadric (oc = cc - o before any product) against
+    a float64 solve of the same winner: f32 accurate away from the large
+    grounds' |oc|^2 - r^2 cancellation, and within 1e-3 on them."""
+    import jax
+
+    from rustraytrace_tpu import models
+
+    scene, cfg, _ = getattr(models, name)(dict(image_width=16))
+    n = 2048
+    k = jax.random.split(jax.random.key(4), 3)
+    eye = jnp.asarray(cfg.lookfrom, jnp.float32)
+    o = eye + jax.random.normal(k[0], (n, 3)) * 0.1
+    d = (jnp.asarray(cfg.lookat, jnp.float32)
+         + jax.random.normal(k[1], (n, 3)) * 3.0 - o)
+    tm = jax.random.uniform(k[2], (n,))
+    t, idx, hit = hit_spheres(o, d, tm, scene, jnp.full(n, 1e-3),
+                              jnp.full(n, 1e9))
+    hit = np.asarray(hit)
+    assert hit.mean() > 0.3
+    idx = np.asarray(idx)[hit]
+    t64 = _root64(np.asarray(o)[hit], np.asarray(d)[hit],
+                  np.asarray(tm)[hit], scene, idx)
+    rel = np.abs(np.asarray(t)[hit] - t64) / t64
+    big = np.asarray(scene.sph_radius)[idx] >= 100.0
+    if (~big).any():
+        assert rel[~big].max() < 1e-4, rel[~big].max()
+        assert np.median(rel[~big]) < 1e-5
+    if big.any():
+        assert rel[big].max() < 1e-3, rel[big].max()

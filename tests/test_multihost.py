@@ -1,7 +1,6 @@
 """Multi-process CPU execution of the multihost bring-up + sharded render.
 
-Round-1 review flagged ``parallel/multihost.py``'s cross-host assembly as
-unexecuted; this spawns TWO real processes (jax.distributed over a local
+This spawns TWO real processes (jax.distributed over a local
 coordinator, one CPU device each), renders the same tiny scene through
 ``render_image_multihost``, and asserts both hosts assemble the identical
 framebuffer."""
@@ -54,8 +53,7 @@ import numpy as np
 from rustraytrace_tpu import models
 from rustraytrace_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
 
-# spp-sharded mesh: px=1, spp=2 — each PROCESS owns one sample shard (the
-# round-3 verdict's untested sharding configuration)
+# spp-sharded mesh: px=1, spp=2 — each PROCESS owns one sample shard
 mesh = multihost.global_mesh(spp_shards=2)
 assert dict(mesh.shape) == {"px": 1, "spp": 2}, dict(mesh.shape)
 
@@ -105,7 +103,7 @@ def test_two_process_cpu_multihost(tmp_path):
     env = dict(os.environ)
     # one local CPU device per process (the parent test env forces 8)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
-    env.pop("RTT_TPU_TESTS", None)
+    env["JAX_PLATFORMS"] = "cpu"  # two concurrent children: never a card
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", _CHILD, str(i), coord, str(tmp_path)],
@@ -134,7 +132,7 @@ def test_two_process_cpu_multihost(tmp_path):
 
 
 def test_two_process_spp_sharded_with_resume(tmp_path):
-    """Round-4 stretch (verdict #9): a 2-process mesh with spp_shards=2 —
+    """A 2-process mesh with spp_shards=2 —
     each PROCESS owns a sample shard — assembles identical framebuffers,
     and a checkpoint/resume cycle under the sharded loop reproduces the
     uninterrupted render bit-exactly (the spp-sharded key basis is the
@@ -142,7 +140,7 @@ def test_two_process_spp_sharded_with_resume(tmp_path):
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
-    env.pop("RTT_TPU_TESTS", None)
+    env["JAX_PLATFORMS"] = "cpu"  # two concurrent children: never a card
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", _CHILD_SPP, str(i), coord, str(tmp_path)],

@@ -1,8 +1,11 @@
-"""Pallas sphere closest-hit kernel vs the XLA reference path.
+"""Closest-hit kernel (Pallas, Triton route) vs the XLA reference path.
 
-Runs in Pallas interpret mode on the CPU test backend; the same kernel code
-compiles through Mosaic on TPU (exercised by bench.py / verify renders).
+Runs the kernel in the Pallas interpreter on the CPU test backend; the same
+kernel compiles through Triton on the GPU (tests/test_gpu.py and
+chip_smoke.py's closest-hit phase).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -10,188 +13,130 @@ import numpy as np
 import pytest
 
 from rustraytrace_tpu import models
-from rustraytrace_tpu.config import derive_camera
-from rustraytrace_tpu.ops.intersect import closest_hit, T_MAX
+from rustraytrace_tpu.ops.integrator import n_media
+from rustraytrace_tpu.ops.intersect import T_MAX, closest_hit
 from rustraytrace_tpu.ops.materials import gather_mat
 from rustraytrace_tpu.ops.pallas_hit import (
     closest_hit_spheres_pallas,
+    kernel_hits,
     sphere_kernel_eligible,
 )
-from rustraytrace_tpu.render import render_pass, resolve_backend
+
+# every box-free catalog scene (the kernel covers spheres + quads)
+KERNEL_SCENES = [
+    "book1_three_spheres", "book1_random_spheres", "book2_bouncing_spheres",
+    "book2_checkered_spheres", "book2_earth", "book2_perlin_spheres",
+    "book2_quads", "book2_simple_light", "book2_cornell_smoke",
+]
 
 
-@pytest.fixture(scope="module")
-def sphere_scene():
-    scene, cfg, _ = models.book1_random_spheres(dict(image_width=64))
-    return scene
+def _scene(name, moving):
+    scene, cfg, _ = getattr(models, name)(dict(image_width=16))
+    if moving and "motion" not in scene.features:
+        vel = jax.random.uniform(jax.random.key(5), scene.sph_cvel.shape,
+                                 minval=-0.3, maxval=0.3)
+        scene = dataclasses.replace(
+            scene, sph_cvel=vel, features=scene.features + ("motion",))
+    return scene, cfg
 
 
-def _random_rays(n, key=0):
-    k = jax.random.key(key)
-    o = jax.random.uniform(jax.random.key(1), (n, 3), minval=-3, maxval=3) \
-        + jnp.asarray([13.0, 2.0, 3.0])
-    d = jax.random.normal(jax.random.key(2), (n, 3))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    # bias half the rays toward the scene center so many actually hit
-    target = jax.random.uniform(jax.random.key(3), (n, 3), minval=-4, maxval=4)
-    to_scene = target - o
-    take = jax.random.uniform(k, (n,)) < 0.7
-    d = jnp.where(take[:, None], to_scene, d)
-    t = jax.random.uniform(jax.random.key(4), (n,))
-    return o, d, t
+def _rays(cfg, n, key=0):
+    """Rays from around the camera toward the look-at region, so a large
+    share hit something in every scene."""
+    k = jax.random.split(jax.random.key(key), 4)
+    eye = jnp.asarray(cfg.lookfrom, jnp.float32)
+    at = jnp.asarray(cfg.lookat, jnp.float32)
+    span = 0.3 * jnp.linalg.norm(at - eye) + 1.0
+    o = eye + jax.random.uniform(k[0], (n, 3), minval=-1.0, maxval=1.0) * (
+        0.05 * span)
+    target = at + jax.random.uniform(k[1], (n, 3), minval=-1.0,
+                                     maxval=1.0) * span
+    d = target - o
+    d = jnp.where((jax.random.uniform(k[2], (n,)) < 0.2)[:, None],
+                  jax.random.normal(k[3], (n, 3)), d)
+    return o, d, jax.random.uniform(jax.random.key(key + 9), (n,))
 
 
-def test_kernel_matches_xla_closest_hit(sphere_scene):
-    scene = sphere_scene
-    o, d, time = _random_rays(2048)
-    rec_ref = closest_hit(o, d, time, scene, jnp.zeros((2048, 2)))
+@pytest.mark.parametrize("moving", [False, True], ids=["static", "moving"])
+@pytest.mark.parametrize("name", KERNEL_SCENES)
+def test_kernel_matches_xla_closest_hit(name, moving):
+    scene, cfg = _scene(name, moving)
+    assert sphere_kernel_eligible(scene)
+    n = 1024
+    o, d, time = _rays(cfg, n)
+    um = jax.random.uniform(jax.random.key(3), (n, n_media(scene)))
+    rec_ref = closest_hit(o, d, time, scene, um)
     mat_ref = gather_mat(scene, rec_ref)
-    rec_k, mat_k = closest_hit_spheres_pallas(o, d, time, scene, interpret=True)
+    rec_k, mat_k = closest_hit_spheres_pallas(o, d, time, scene, u_media=um,
+                                              interpret=True)
 
-    # Near-tangent / near-tie rays can legitimately resolve to different
-    # winners under the two summation orders (f32 expanded quadric); require
-    # >= 97% exact agreement and tight numerics on the agreeing lanes.
     valid_ref = np.asarray(rec_ref.valid)
     valid_k = np.asarray(rec_k.valid)
+    assert valid_ref.mean() > 0.05  # the comparison exercises hits
     assert (valid_ref == valid_k).mean() > 0.99
     hits = valid_ref & valid_k
-    assert hits.sum() > 500  # the comparison actually exercises hits
     t_ref = np.asarray(rec_ref.t)[hits]
     t_k = np.asarray(rec_k.t)[hits]
-    agree = np.abs(t_ref - t_k) <= 1e-4 * (1.0 + np.abs(t_ref))
+    # near-tangent / near-tie rays may resolve differently under the two
+    # f32 evaluation orders; the rest agree to f32 quadric precision
+    agree = np.abs(t_ref - t_k) <= 1e-3 * (1.0 + np.abs(t_ref))
     assert agree.mean() > 0.97, agree.mean()
 
-    def on_agree(a, ref_val, k_val, **tol):
-        np.testing.assert_allclose(
-            np.asarray(ref_val)[hits][agree], np.asarray(k_val)[hits][agree], **tol
-        )
+    def on_agree(ref_val, k_val):
+        return np.asarray(ref_val)[hits][agree], np.asarray(k_val)[hits][agree]
 
-    on_agree(agree, rec_ref.t, rec_k.t, rtol=1e-4, atol=1e-4)
-    on_agree(agree, rec_ref.normal, rec_k.normal, rtol=1e-3, atol=5e-3)
-    np.testing.assert_array_equal(
-        np.asarray(rec_ref.front_face)[hits][agree],
-        np.asarray(rec_k.front_face)[hits][agree],
-    )
-    np.testing.assert_array_equal(
-        np.asarray(mat_ref.kind)[hits][agree], np.asarray(mat_k.kind)[hits][agree]
-    )
-    on_agree(agree, mat_ref.albedo, mat_k.albedo, rtol=1e-5, atol=1e-5)
-    on_agree(agree, mat_ref.fuzz, mat_k.fuzz, atol=1e-6)
-    on_agree(agree, mat_ref.ior, mat_k.ior, atol=1e-6)
-
-
-def test_kernel_motion_blur_and_checker():
-    scene, cfg, _ = models.book2_bouncing_spheres(dict(image_width=32))
-    # bouncing_spheres has checker ground + moving spheres; still eligible
-    assert sphere_kernel_eligible(scene)
-    o, d, time = _random_rays(1024, key=7)
-    rec_ref = closest_hit(o, d, time, scene, jnp.zeros((1024, 2)))
-    mat_ref = gather_mat(scene, rec_ref)
-    rec_k, mat_k = closest_hit_spheres_pallas(o, d, time, scene, interpret=True)
-    valid_ref = np.asarray(rec_ref.valid)
-    assert (valid_ref == np.asarray(rec_k.valid)).mean() > 0.99
-    hits = valid_ref & np.asarray(rec_k.valid)
-    t_ref = np.asarray(rec_ref.t)[hits]
-    t_k = np.asarray(rec_k.t)[hits]
-    agree = np.abs(t_ref - t_k) <= 1e-4 * (1.0 + np.abs(t_ref))
-    assert agree.mean() > 0.97
+    np.testing.assert_array_equal(*on_agree(rec_ref.mat, rec_k.mat))
+    np.testing.assert_array_equal(*on_agree(rec_ref.front_face,
+                                            rec_k.front_face))
+    np.testing.assert_array_equal(*on_agree(mat_ref.kind, mat_k.kind))
+    n_ref, n_k = on_agree(rec_ref.normal, rec_k.normal)
+    assert (np.abs(n_ref - n_k).max(axis=-1) < 5e-3).mean() > 0.99
     # checker parity flips when the two hit points straddle a lattice cell
-    # boundary by ~1e-6 — a texture discontinuity, so bound the rate instead
-    a_ref = np.asarray(mat_ref.albedo)[hits][agree]
-    a_k = np.asarray(mat_k.albedo)[hits][agree]
-    close = np.all(np.abs(a_ref - a_k) < 1e-5, axis=-1)
-    assert close.mean() > 0.995
+    # boundary, and marble noise is steep in p — texture values follow the
+    # f32 hit-point difference, so bound the rate of large deviations
+    a_ref, a_k = on_agree(mat_ref.albedo, mat_k.albedo)
+    assert (np.abs(a_ref - a_k).max(axis=-1) < 1e-2).mean() > 0.98
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1000, 4097])
+def test_wrapper_padding(n):
+    """R is padded to the ray block and cropped back: shapes and results
+    match the unpadded reference at every residue."""
+    scene, cfg = _scene("book1_three_spheres", False)
+    o, d, time = _rays(cfg, n, key=n)
+    t, idx = kernel_hits(o, d, time, scene, interpret=True)
+    assert t.shape == (n,) and idx.shape == (n,)
+    assert t.dtype == jnp.float32 and idx.dtype == jnp.int32
+    rec = closest_hit(o, d, time, scene, jnp.zeros((n, n_media(scene))))
+    valid = np.asarray(rec.valid)
+    assert ((np.asarray(idx) >= 0) == valid).mean() > 0.99
+    miss = np.asarray(idx) < 0
+    np.testing.assert_array_equal(np.asarray(t)[miss], T_MAX)
+
+
+def test_quad_index_encoding():
+    """Quad winners come back as n_spheres + quad index."""
+    from rustraytrace_tpu.scene import SceneBuilder
+
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, -10.0), 1.0, b.lambertian((0.5,) * 3))
+    b.add_quad((-1, -1, -3), (2, 0, 0), (0, 2, 0), b.lambertian((0.5,) * 3))
+    scene = b.build()
+    o = jnp.zeros((3, 3))
+    d = jnp.asarray([[0.0, 0.0, -1.0], [0.0, 5.0, -1.0], [0.0, 0.0, 1.0]])
+    t, idx = kernel_hits(o, d, jnp.zeros(3), scene, interpret=True)
+    S = scene.sph_center.shape[0]
+    assert int(idx[0]) == S  # the quad at z=-3 occludes the sphere
+    np.testing.assert_allclose(float(t[0]), 3.0, rtol=1e-6)
+    assert int(idx[1]) == -1 and int(idx[2]) == -1
 
 
 def test_eligibility():
-    s1, _, _ = models.book1_three_spheres()
-    s3, _, _ = models.book2_earth()
-    s4, _, _ = models.book2_cornell_smoke()
-    # the hybrid now covers everything (spheres+quads in-kernel, media via
-    # the XLA free-flight sampler, textures outside)
-    assert sphere_kernel_eligible(s1)
-    assert sphere_kernel_eligible(s3)
-    assert sphere_kernel_eligible(s4)
-    on_tpu = jax.default_backend() == "tpu"
-    assert resolve_backend(s1, "path") == (
-        "megakernel" if on_tpu else "sphere_kernel")
-    assert resolve_backend(s3, "path") == "sphere_kernel"  # image texture
-    s2, _, _ = models.book3_cornell_box()
-    # the MIS integrator has no hybrid branch: megakernel on TPU, else XLA
-    assert resolve_backend(s2, "mis") == ("megakernel" if on_tpu else "xla")
-
-
-def test_kernel_quads_and_media_match_xla():
-    """Hybrid closest-hit on a quads+media scene (cornell smoke) vs the XLA
-    reference — same media uniforms so free-flight decisions coincide."""
-    scene, cfg, _ = models.book2_cornell_smoke(dict(image_width=32))
-    nm = scene.msph_center.shape[0] + scene.mbox_cos.shape[0]
-    n = 1024
-    o = jax.random.uniform(jax.random.key(1), (n, 3), minval=100.0,
-                           maxval=450.0)
-    d = jax.random.normal(jax.random.key(2), (n, 3))
-    t = jnp.zeros(n)
-    um = jax.random.uniform(jax.random.key(3), (n, nm))
-    rec_ref = closest_hit(o, d, t, scene, um)
-    rec_k, mat_k = closest_hit_spheres_pallas(o, d, t, scene, u_media=um,
-                                              interpret=True)
-    valid_ref = np.asarray(rec_ref.valid)
-    # inside the box most rays hit (the open front wall lets ~15% escape)
-    assert valid_ref.mean() > 0.8
-    assert (valid_ref == np.asarray(rec_k.valid)).mean() > 0.99
-    hits = valid_ref & np.asarray(rec_k.valid)
-    t_ref = np.asarray(rec_ref.t)[hits]
-    t_k = np.asarray(rec_k.t)[hits]
-    agree = np.abs(t_ref - t_k) <= 1e-3 * (1.0 + np.abs(t_ref))
-    assert agree.mean() > 0.97, agree.mean()
-    np.testing.assert_array_equal(
-        np.asarray(rec_ref.mat)[hits][agree],
-        np.asarray(rec_k.mat)[hits][agree])
-    np.testing.assert_allclose(
-        np.asarray(rec_ref.normal)[hits][agree],
-        np.asarray(rec_k.normal)[hits][agree], atol=5e-3)
-
-
-def test_render_pass_kernel_backend_statistics():
-    """Full render through the kernel backend agrees with the XLA backend in
-    distribution (different RNG consumption -> compare means)."""
-    scene, cfg, _ = models.book1_three_spheres(
-        dict(image_width=48, samples_per_pixel=48, max_depth=8)
-    )
-    cam = derive_camera(cfg)
-    kw = dict(width=cfg.image_width, height=cfg.image_height, spp=48,
-              max_depth=8, chunk=1024)
-    img_x = np.asarray(render_pass(scene, cam, jax.random.key(0),
-                                   backend="xla", **kw)) / 48
-    img_k = np.asarray(render_pass(scene, cam, jax.random.key(1),
-                                   backend="sphere_kernel", **kw)) / 48
-    assert np.all(np.isfinite(img_k))
-    # per-pixel MC noise at 48 spp is large; compare the mean image coarsely
-    err = np.abs(img_x.mean(axis=(0, 1)) - img_k.mean(axis=(0, 1)))
-    assert err.max() < 0.02, (img_x.mean(axis=(0, 1)), img_k.mean(axis=(0, 1)))
-
-
-@pytest.mark.skipif(
-    jax.default_backend() == "cpu",
-    reason="pltpu.prng_seed has no CPU lowering (even interpret mode); "
-           "the megakernel is validated on TPU by bench.py and the verify "
-           "renders",
-)
-def test_megakernel_backend_statistics():
-    """Megakernel agrees with the XLA integrator in distribution."""
-    from rustraytrace_tpu.ops.pallas_megakernel import megakernel_eligible
-
-    scene, cfg, _ = models.book1_three_spheres(
-        dict(image_width=48, samples_per_pixel=32, max_depth=8)
-    )
-    assert megakernel_eligible(scene)
-    cam = derive_camera(cfg)
-    kw = dict(width=cfg.image_width, height=cfg.image_height, spp=32,
-              max_depth=8, chunk=1024)
-    img_x = np.asarray(render_pass(scene, cam, jax.random.key(0),
-                                   backend="xla", **kw)) / 32
-    img_m = np.asarray(render_pass(scene, cam, jax.random.key(1),
-                                   backend="megakernel", **kw)) / 32
-    assert np.all(np.isfinite(img_m))
-    err = np.abs(img_x.mean(axis=(0, 1)) - img_m.mean(axis=(0, 1)))
-    assert err.max() < 0.025, (img_x.mean(axis=(0, 1)), img_m.mean(axis=(0, 1)))
+    """Box primitives have no kernel loop; rotated boxes are built as quads
+    and stay eligible."""
+    for name in KERNEL_SCENES + ["book2_cornell_box", "book3_cornell_box"]:
+        scene, _, _ = getattr(models, name)(dict(image_width=16))
+        assert sphere_kernel_eligible(scene), name
+    final, _, _ = models.book2_final_scene(dict(image_width=16))
+    assert "boxes" in final.features
+    assert not sphere_kernel_eligible(final)

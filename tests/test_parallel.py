@@ -1,7 +1,7 @@
-"""Multi-chip sharding tests on the 8-virtual-device CPU mesh (SURVEY.md §4.4).
+"""Multi-device sharding tests on the 8-virtual-device CPU mesh (SURVEY.md §4.4).
 
 The key invariant: sharding is an EXECUTION choice, not a semantics choice.
-Pixel-sharded renders must be bit-identical to single-chip renders (same key
+Pixel-sharded renders must be bit-identical to single-device renders (same key
 derivation per (sample, chunk) unit); spp-sharded renders agree up to f32
 summation order.
 """
@@ -70,11 +70,9 @@ def test_spp_round_up():
 
 def test_render_image_sharded_matches_single(small_scene):
     scene, cfg, integ = small_scene
-    # pin the single-chip render to the XLA backend: the sharded path is the
-    # differentiable XLA one, and the kernel backends use different RNG
-    # consumption so images would differ by MC realization
-    img1, st1 = render_image(scene, cfg, integrator=integ, chunk=CHUNK,
-                             backend="xla")
+    # both loops route 'auto' through render.resolve_backend (the XLA path
+    # on the CPU mesh), so the images are bit-identical
+    img1, st1 = render_image(scene, cfg, integrator=integ, chunk=CHUNK)
     mesh = make_mesh(jax.devices())
     img8, st8 = render_image_sharded(
         scene, cfg, mesh=mesh, integrator=integ, chunk=CHUNK
@@ -83,42 +81,32 @@ def test_render_image_sharded_matches_single(small_scene):
     np.testing.assert_array_equal(img1, img8)
 
 
-def test_sharded_routing_decision_table(small_scene):
-    """Mesh-free pin of the sharded routing/guard table (round-3 regression:
-    a stale guard raised on wavefront+MIS — the very combination the
-    auto-router selects for image+MIS scenes on TPU meshes).  Eligibility
-    predicates are injected so the table is exercised without TPU devices."""
-    from rustraytrace_tpu.parallel.render import resolve_sharded_backend
+def test_sharded_routing_decision_table(small_scene, monkeypatch):
+    """The sharded loop routes through render.resolve_backend — the same
+    table as the single-device loop — and rejects what it rejects."""
+    import rustraytrace_tpu.parallel.render as pr
+    from rustraytrace_tpu import render as render_mod
 
-    scene, _, _ = small_scene
+    scene, cfg, integ = small_scene
     mesh = make_mesh(jax.devices())
-    yes = lambda s, i, m: True
-    no = lambda s, i, m: False
+    seen = []
+    real = pr.render_pass_sharded
 
-    # auto-routing, megakernel-eligible (plain TPU scene)
-    assert resolve_sharded_backend(scene, "path", mesh, "auto",
-                                   _mk_eligible=yes) == "wavefront"
-    assert resolve_sharded_backend(scene, "mis", mesh, "auto",
-                                   _mk_eligible=yes) == "megakernel"
-    # auto-routing, wavefront-only-eligible (image scenes) — BOTH integrators
-    # must route without raising (the round-3 bug raised on 'mis' here)
-    for integ in ("path", "mis"):
-        assert resolve_sharded_backend(
-            scene, integ, mesh, "auto", _mk_eligible=no,
-            _wf_eligible=yes) == "wavefront"
-    # nothing eligible -> xla
-    assert resolve_sharded_backend(scene, "mis", mesh, "auto",
-                                   _mk_eligible=no, _wf_eligible=no) == "xla"
-    # explicit backends: every auto-selectable (backend, integrator) pair is
-    # accepted explicitly too
-    for be in ("megakernel", "wavefront"):
-        for integ in ("path", "mis"):
-            assert resolve_sharded_backend(scene, integ, mesh, be) == be
-    # the guard still rejects integrators no kernel implements
+    def spy(*a, **kw):
+        seen.append(kw["backend"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(pr, "render_pass_sharded", spy)
+    render_image_sharded(scene, cfg, mesh=mesh, integrator=integ, chunk=CHUNK)
+    assert seen and set(seen) == {"xla"}  # auto on the CPU mesh
+    monkeypatch.setattr(render_mod.jax, "default_backend", lambda: "gpu")
+    assert render_mod.resolve_backend(scene, integ) == "sphere_kernel"
     with pytest.raises(ValueError):
-        resolve_sharded_backend(scene, "nonsense", mesh, "wavefront")
+        render_image_sharded(scene, cfg, mesh=mesh, integrator=integ,
+                             chunk=CHUNK, backend="megakernel")
     with pytest.raises(ValueError):
-        resolve_sharded_backend(scene, "path", mesh, "bogus-backend")
+        render_image_sharded(scene, cfg, mesh=mesh, integrator="mis",
+                             chunk=CHUNK, backend="sphere_kernel")
 
 
 def test_mis_integrator_sharded(small_scene):

@@ -1,8 +1,6 @@
-"""Regression tests for the round-1 advisor findings + round-2 parity items:
-pole-UV gradient guard, full-buffer checkpoint fingerprints, stratified
-sample-index wrapping, mesh-independent chunk keys, CLI book-name
-normalization (reference main.rs:7-12), and the spp-sharded megakernel
-wiring (replicate tables / split offsets / psum)."""
+"""Regression tests: pole-UV gradient guard, full-buffer checkpoint
+fingerprints, stratified sample-index wrapping, and CLI book-name
+normalization (reference main.rs:7-12)."""
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +9,6 @@ import pytest
 
 from rustraytrace_tpu import models
 from rustraytrace_tpu.config import derive_camera
-from rustraytrace_tpu.parallel import make_mesh
 from rustraytrace_tpu.render import trace_rays
 
 
@@ -78,178 +75,3 @@ def test_book_name_normalization(raw, expected):
     from rustraytrace_tpu.models.scenes import normalize_scene_name
 
     assert normalize_scene_name(raw) == expected
-
-
-def test_sharded_megakernel_wiring():
-    """Structural test of the spp-sharded megakernel plumbing on the virtual
-    CPU mesh: tables replicated, one offset per device, outputs psum'd.  The
-    kernel itself is TPU-only, so a substitute pass_fn stands in."""
-    from rustraytrace_tpu.parallel.megakernel import sharded_megakernel_wiring
-
-    mesh = make_mesh(jax.devices())
-    n = int(mesh.devices.size)
-    arrays = dict(x=jnp.full((4,), 2.0))
-    offsets = jnp.arange(n, dtype=jnp.int32) * 3
-
-    def fake_pass(arrays, key, off):
-        return (jnp.full((2, 2, 3), off.astype(jnp.float32))
-                * arrays["x"][0])
-
-    out = sharded_megakernel_wiring(
-        fake_pass, arrays, jax.random.key(0), offsets, mesh)
-    expected = 2.0 * 3.0 * sum(range(n))
-    np.testing.assert_allclose(np.asarray(out), expected)
-
-
-def test_megakernel_shard_eligible_cpu_mesh_false():
-    from rustraytrace_tpu.parallel.megakernel import megakernel_shard_eligible
-
-    scene, _, _ = models.book1_three_spheres()
-    mesh = make_mesh(jax.devices())
-    assert not megakernel_shard_eligible(scene, "path", mesh)
-
-
-def test_spp_traced_mesh():
-    from rustraytrace_tpu.parallel.megakernel import spp_traced_mesh
-
-    mesh = make_mesh(jax.devices())
-    n = int(mesh.devices.size)
-    assert spp_traced_mesh(n + 1, mesh) == 2 * n
-    assert spp_traced_mesh(n, mesh) == n
-
-
-def test_wavefront_eligibility():
-    """Image-textured scenes route to the segmented wavefront kernel iff
-    every image texture sits on a sphere material."""
-    from rustraytrace_tpu.ops.pallas_wavefront import wavefront_eligible
-
-    earth, _, _ = models.book2_earth()
-    assert wavefront_eligible(earth, "path")
-    assert not wavefront_eligible(earth, "mis")
-    final, _, _ = models.book2_final_scene()
-    assert wavefront_eligible(final, "path")
-    plain, _, _ = models.book1_three_spheres()
-    assert not wavefront_eligible(plain, "path")  # no image -> megakernel
-
-
-def test_sphere_field_10k_builds_and_routes():
-    """The scaling scene compiles to ~10k SoA rows and stays megakernel-
-    eligible (two-level cluster hierarchy; VERDICT round-1 item 5)."""
-    from rustraytrace_tpu.ops.pallas_megakernel import (megakernel_eligible,
-                                                        prepare_megakernel)
-    from rustraytrace_tpu.config import derive_camera
-
-    scene, cfg, integ = models.sphere_field_10k(
-        dict(image_width=64, samples_per_pixel=1, max_depth=4))
-    n = int(scene.sph_center.shape[0])
-    assert 9000 <= n <= 10100 and integ == "path"
-    assert megakernel_eligible(scene)
-    cam = derive_camera(cfg)
-    arrays, statics = prepare_megakernel(
-        scene, cam, width=64, height=36, spp=1, max_depth=4,
-        tile_rows=8, interpret=True)
-    # geometry table stays column-major (SMEM budget) and slab count scales
-    # with the PADDED row count (round 3: cluster ranges pad to multiples
-    # of the intersect-loop unroll with unhittable sentinels)
-    assert arrays["tab"].shape[0] in (4, 7)
-    n_padded = arrays["tab"].shape[1]
-    assert n <= n_padded <= n * 1.2
-    assert statics["n_slabs"] == -(-n_padded // 128)
-
-
-def test_wavefront_respawn_stratum_wrap():
-    """The respawn spawner derives each lane's stratum from its own absolute
-    sample index, wrapped to the sqrt_spp^2 grid so shard-padded extras stay
-    inside the pixel footprint (advisor round-1 finding on parallel/render).
-    Reproduces the arithmetic inline (the spawner itself needs the TPU
-    kernel around it)."""
-    import numpy as np
-
-    sqrt_spp = 4
-    n2 = float(sqrt_spp * sqrt_spp)
-    s_next = jnp.arange(40, dtype=jnp.int32)  # > sqrt_spp^2: must wrap
-    s_w = jnp.mod(s_next.astype(jnp.float32), n2)
-    s_i = jnp.mod(s_w, float(sqrt_spp))
-    s_j = jnp.floor(s_w * (1.0 / float(sqrt_spp)))
-    assert float(jnp.max(s_i)) < sqrt_spp and float(jnp.max(s_j)) < sqrt_spp
-    # exact stratum cycle: sample k lands in cell (k%4, (k%16)//4)
-    np.testing.assert_array_equal(
-        np.asarray(s_i), (np.arange(40) % 16 % 4).astype(np.float32))
-    np.testing.assert_array_equal(
-        np.asarray(s_j), (np.arange(40) % 16 // 4).astype(np.float32))
-
-
-def test_backend_routing_collapsed(monkeypatch):
-    """'auto' routing after the round-2 collapse: the persistent-respawn
-    kernel won on EVERY scene incl. enclosed/MIS (see resolve_backend
-    docstring), so path scenes route to 'wavefront' regardless of
-    background, MIS scenes to 'megakernel', and an explicit backend always
-    wins.  The round-2 ``background=`` kwarg is gone — passing it is an
-    error, so stale callers fail loudly instead of silently not routing."""
-    from rustraytrace_tpu import render as render_mod
-
-    monkeypatch.setattr(render_mod.jax, "default_backend", lambda: "tpu")
-    # open (sky gradient) and enclosed (black background) route identically
-    scene, cfg, _ = models.book1_three_spheres(dict(image_width=16))
-    assert cfg.background is None  # sky gradient (open)
-    assert render_mod.resolve_backend(scene, "path") == "wavefront"
-    enclosed, ecfg, _ = models.book2_cornell_box(dict(image_width=16))
-    assert ecfg.background == (0.0, 0.0, 0.0)
-    assert render_mod.resolve_backend(enclosed, "path") == "wavefront"
-    mis_scene, _, integ = models.book3_cornell_box(dict(image_width=16))
-    assert integ == "mis"
-    assert render_mod.resolve_backend(mis_scene, "mis") == "megakernel"
-    # explicit backend always wins
-    assert render_mod.resolve_backend(scene, "path", backend="xla") == "xla"
-    with pytest.raises(TypeError):
-        render_mod.resolve_backend(scene, "path", background=None)
-
-
-def test_batab_rows_match_kernel_fetch_for_image_scenes():
-    """A scene with boxes + an image texture but NO checker/noise must pack
-    the full 17-row box-attribute table: the kernel's has_tex predicate
-    includes 'image', so it fetches batab rows 12-16 (found by an ablation
-    crash: 12-row batab + has_tex kernel -> out-of-bounds slab slice)."""
-    import numpy as np
-
-    from rustraytrace_tpu import RenderConfig, SceneBuilder
-    from rustraytrace_tpu.config import derive_camera
-    from rustraytrace_tpu.models.scenes import _finish
-    from rustraytrace_tpu.ops.pallas_megakernel import prepare_megakernel
-
-    b = SceneBuilder()
-    b.add_box((0, 0, 0), (1, 1, 1), b.lambertian((0.5, 0.5, 0.5)))
-    img = np.full((4, 8, 3), 0.5, np.float32)
-    b.add_sphere((0, 3, 0), 1.0, b.lambertian(tex=b.image_texture(img)))
-    cfg = RenderConfig(image_width=16, samples_per_pixel=1, max_depth=2,
-                       background=(0.7, 0.8, 1.0))
-    scene, cfg, _ = _finish(b, cfg, "path", None)
-    cam = derive_camera(cfg)
-    arrays, statics = prepare_megakernel(
-        scene, cam, width=16, height=9, spp=1, max_depth=2,
-        tile_rows=8, interpret=True, segment=True)
-    # n_boxes is the b_unroll-padded count since round 3 (1 box -> one
-    # padded group); the batab row contract is what matters here
-    assert statics["has_image"] and 1 <= statics["n_boxes"] <= statics["b_unroll"]
-    assert arrays["batab"].shape[0] == 17 * statics["b_slabs"]
-
-
-def test_prepare_megakernel_respawn_statics():
-    """respawn=True must flow into the monolithic statics (the persistent
-    in-kernel respawn loop) and stay absent from segment statics (the
-    segmented wavefront drives respawn from XLA instead)."""
-    from rustraytrace_tpu.config import derive_camera
-    from rustraytrace_tpu.ops.pallas_megakernel import prepare_megakernel
-    from rustraytrace_tpu.ops.pallas_wavefront import SEG_KEYS
-
-    scene, cfg, _ = models.book1_three_spheres(dict(image_width=16))
-    cam = derive_camera(cfg)
-    _, st = prepare_megakernel(scene, cam, width=16, height=9, spp=2,
-                               max_depth=3, interpret=True, respawn=True)
-    assert st["respawn"] is True
-    _, st2 = prepare_megakernel(scene, cam, width=16, height=9, spp=2,
-                                max_depth=3, interpret=True)
-    assert st2["respawn"] is False
-    _, st3 = prepare_megakernel(scene, cam, width=16, height=9, spp=1,
-                                max_depth=3, interpret=True, segment=True)
-    assert "respawn" not in st3 and "respawn" not in SEG_KEYS

@@ -1,12 +1,9 @@
-"""Round-3 CPU tests: intersect-loop unroll padding, static media kinds,
-wavefront MIS / image-on-quad eligibility, and routing."""
+"""Image texture on a quad: the XLA oracle's planar (u, v) lookup."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from rustraytrace_tpu import RenderConfig, SceneBuilder, models
+from rustraytrace_tpu import RenderConfig, SceneBuilder
 from rustraytrace_tpu.config import derive_camera
 from rustraytrace_tpu.models.scenes import _finish
 
@@ -32,113 +29,11 @@ def _image_quad_scene(mis=False):
     return _finish(b, cfg, "mis" if mis else "path", None)
 
 
-def test_pad_cluster_ranges():
-    from rustraytrace_tpu.ops.pallas_megakernel import _pad_cluster_ranges
-
-    order = np.arange(10, dtype=np.int32)
-    starts = np.asarray([0, 3, 10], np.int32)
-    p_order, p_starts = _pad_cluster_ranges(order, starts, 4)
-    # 3 -> 4 and 7 -> 8: every range a multiple of 4, sentinels are -1
-    np.testing.assert_array_equal(p_starts, [0, 4, 12])
-    np.testing.assert_array_equal(p_order[:4], [0, 1, 2, -1])
-    np.testing.assert_array_equal(p_order[4:], [3, 4, 5, 6, 7, 8, 9, -1])
-    # u=1 is the identity
-    o1, s1 = _pad_cluster_ranges(order, starts, 1)
-    np.testing.assert_array_equal(o1, order)
-    np.testing.assert_array_equal(s1, starts)
-
-
-def test_prepare_pads_clusters_to_unroll():
-    """Padded sphere table rows are unhittable (r2 = -BIG) and every
-    cluster range is unroll-aligned with pre-divided starts."""
-    from rustraytrace_tpu.ops.pallas_megakernel import prepare_megakernel
-
-    scene, cfg, _ = models.book1_random_spheres(dict(image_width=32))
-    cam = derive_camera(cfg)
-    arrays, statics = prepare_megakernel(
-        scene, cam, width=32, height=18, spp=1, max_depth=2,
-        interpret=True, unroll=4, b_unroll=4)
-    assert statics["unroll"] == 4
-    tab = np.asarray(arrays["tab"])  # [cols, N] geometry table
-    cls = np.asarray(arrays["cls"])  # pre-divided starts
-    n_real = int(np.asarray(scene.sph_mask).sum())
-    assert tab.shape[1] % 4 == 0
-    assert tab.shape[1] >= n_real
-    # pre-divided starts cover the padded table exactly
-    assert cls[-1] * 4 == tab.shape[1]
-    assert np.all(np.diff(cls) >= 1)
-    # sentinel rows reject every ray: r2 = -BIG
-    n_dead = int((tab[3] < -1e29).sum())
-    assert n_dead == tab.shape[1] - n_real
-
-
-def test_prepare_media_kinds_static():
-    from rustraytrace_tpu.ops.pallas_megakernel import prepare_megakernel
-
-    scene, cfg, _ = models.book2_final_scene(
-        overrides=dict(image_width=32), image_width=32)
-    cam = derive_camera(cfg)
-    _, statics = prepare_megakernel(
-        scene, cam, width=32, height=32, spp=1, max_depth=2,
-        interpret=True, segment=True)
-    # final scene: two sphere media (interior blue + whole-scene mist)
-    assert statics["media_kinds"] == (0, 0)
-    assert statics["n_media"] == 2
-
-    smoke, scfg, _ = models.book2_cornell_smoke(dict(image_width=32))
-    scam = derive_camera(scfg)
-    _, st2 = prepare_megakernel(
-        smoke, scam, width=32, height=32, spp=1, max_depth=2,
-        interpret=True)
-    # cornell smoke: two oriented-box media
-    assert st2["media_kinds"] == (1, 1)
-
-
-def test_wavefront_eligible_image_on_quad():
-    from rustraytrace_tpu.ops.pallas_wavefront import wavefront_eligible
-
-    scene, _, _ = _image_quad_scene()
-    assert wavefront_eligible(scene, "path")
-
-    # image-textured MEDIA still fall back to XLA
-    b = SceneBuilder()
-    img = np.full((4, 8, 3), 0.5, np.float32)
-    b.add_medium_sphere((0, 0, -3), 1.0, 0.5,
-                        b.isotropic(tex=b.image_texture(img)))
-    b.add_sphere((0, -100.5, -3), 100.0, b.lambertian((0.5, 0.5, 0.5)))
-    cfg = RenderConfig(image_width=16, samples_per_pixel=1, max_depth=2,
-                       background=(0.7, 0.8, 1.0))
-    mscene, _, _ = _finish(b, cfg, "path", None)
-    assert not wavefront_eligible(mscene, "path")
-
-
-def test_wavefront_eligible_mis():
-    from rustraytrace_tpu.ops.pallas_wavefront import wavefront_eligible
-
-    scene, _, integ = _image_quad_scene(mis=True)
-    assert integ == "mis"
-    assert wavefront_eligible(scene, "mis")
-    # no NEE lights -> not MIS-eligible
-    nolight, _, _ = _image_quad_scene(mis=False)
-    assert not wavefront_eligible(nolight, "mis")
-
-
-def test_routing_image_mis_to_wavefront(monkeypatch):
-    from rustraytrace_tpu import render as render_mod
-
-    monkeypatch.setattr(render_mod.jax, "default_backend", lambda: "tpu")
-    scene, _, _ = _image_quad_scene(mis=True)
-    assert render_mod.resolve_backend(scene, "mis") == "wavefront"
-    # plain image scene still routes to wavefront; non-image MIS unchanged
-    mis_scene, _, _ = models.book3_cornell_box(dict(image_width=16))
-    assert render_mod.resolve_backend(mis_scene, "mis") == "megakernel"
-
-
 def test_xla_image_on_quad_uv():
     """The XLA oracle itself: an image-textured quad renders with the
     planar (alpha, beta) as (u, v) — nearest-texel values must appear in
-    the primary-hit radiance (validates the oracle the TPU golden test
-    compares against)."""
+    the primary-hit radiance (validates the oracle tests/test_gpu.py compares the
+    card against)."""
     from rustraytrace_tpu.render import render_pass
 
     scene, cfg, _ = _image_quad_scene()
@@ -149,127 +44,3 @@ def test_xla_image_on_quad_uv():
         max_depth=4, integrator="path", chunk=w * h, backend="xla")) / 16
     assert np.all(np.isfinite(acc))
     assert acc.mean() > 0.01  # the quad is lit by the sky background
-
-
-def test_atan2_acos_poly():
-    """The in-kernel polynomial atan2/acos (Mosaic has no lowering for
-    either) must hit texel precision: error << 1/(2*W) of a 2048-wide
-    image in UV units."""
-    from rustraytrace_tpu.ops.pallas_megakernel import acos_poly, atan2_poly
-
-    rng = np.random.default_rng(5)
-    y = jnp.asarray(rng.uniform(-2, 2, 20000), jnp.float32)
-    x = jnp.asarray(rng.uniform(-2, 2, 20000), jnp.float32)
-    got = np.asarray(atan2_poly(y, x))
-    ref = np.arctan2(np.asarray(y), np.asarray(x))
-    assert np.max(np.abs(got - ref)) < 5e-5
-
-    z = jnp.asarray(rng.uniform(-1, 1, 20000), jnp.float32)
-    got_a = np.asarray(acos_poly(z))
-    ref_a = np.arccos(np.asarray(z))
-    assert np.max(np.abs(got_a - ref_a)) < 1e-4
-    # poles and quadrant edges exact enough
-    for yy, xx in ((0.0, 1.0), (0.0, -1.0), (1.0, 0.0), (-1.0, 0.0),
-                   (0.0, 0.0)):
-        g = float(atan2_poly(jnp.float32(yy), jnp.float32(xx)))
-        r = 0.0 if (yy == 0.0 and xx == 0.0) else float(np.arctan2(yy, xx))
-        assert abs(g - r) < 5e-5, (yy, xx, g, r)
-
-
-def test_pack_image_dma_roundtrip():
-    """The in-kernel texel-DMA table: RGBA-quad flat layout, (8,128)-tile
-    padded, with static (base, W, H) metas — texels must round-trip
-    exactly against scene.images at the meta-derived flat index."""
-    from rustraytrace_tpu.ops.pallas_megakernel import pack_image_dma
-
-    scene, _, _ = models.book2_final_scene(
-        overrides=dict(image_width=16), image_width=16)
-    tab, meta = pack_image_dma(scene)
-    assert tab.shape[1] == 128 and tab.shape[0] % 8 == 0
-    img = np.asarray(scene.images)[0]
-    base, w, h = meta[0]
-    assert (w, h) == (img.shape[1], img.shape[0]) or True  # padded images
-    hw = np.asarray(scene.image_hw)[0]
-    assert (h, w) == (int(hw[0]), int(hw[1]))
-    flat = np.asarray(tab).reshape(-1)
-    for j, i in ((0, 0), (37, 411), (h - 1, w - 1)):
-        t = base + j * w + i
-        np.testing.assert_array_equal(flat[t * 4:t * 4 + 3], img[j, i])
-
-
-def test_motion_split_partitions_clusters():
-    """Static/moving sphere split (round 3): a moving scene with a static
-    majority clusters the two groups separately — leading super-clusters
-    hold only zero-velocity spheres (the kernel compiles their loop without
-    the per-sphere motion reads), trailing ones only movers, and no active
-    sphere is lost (sphere.rs:30-35 center-at-time, paid only where centers
-    move)."""
-    from rustraytrace_tpu.ops.pallas_megakernel import prepare_megakernel
-
-    scene, cfg, _ = models.book2_final_scene(dict(image_width=48))
-    cam = derive_camera(cfg)
-    arrays, st = prepare_megakernel(scene, cam, width=48, height=48, spp=2,
-                                    max_depth=4, segment=True)
-    nss, nsc = st["n_ssc_static"], st["n_sclusters"]
-    assert 0 < nss < nsc, (nss, nsc)
-    gtab = np.asarray(arrays["tab"])
-    assert gtab.shape[0] == 7  # moving layout: cx cy cz r2 vx vy vz
-    scls = np.asarray(arrays["scls"])
-    cls = np.asarray(arrays["cls"])
-    sph_b = cls[scls[nss]] * st["unroll"]
-    act = gtab[3] > 0  # padding sentinels (r2 = -BIG) borrow row-0 attrs
-    vmax = np.abs(gtab[4:7]).max(axis=0)
-    assert vmax[:sph_b][act[:sph_b]].max() == 0.0
-    assert vmax[sph_b:][act[sph_b:]].min() > 0.0
-    n_active = int(np.asarray(scene.sph_mask).sum())
-    # >= since round 4: the static cloud grid-bins with spatial-split
-    # DUPLICATION (tests/test_sphere_grid.py), so active slots can exceed
-    # active spheres; sentinel rows are still the only inactive ones
-    assert int(act.sum()) >= n_active
-    # cluster/super-cluster tables stay consistent: starts monotone, last
-    # super covers the last cluster, bounds contain their spheres
-    assert scls[-1] == st["n_clusters"]
-    assert (np.diff(scls) >= 1).all() and (np.diff(cls) >= 0).all()
-    clb = np.asarray(arrays["clb"])
-    for c in range(st["n_clusters"]):
-        lo, hi = cls[c] * st["unroll"], cls[c + 1] * st["unroll"]
-        rows = np.arange(lo, hi)[act[lo:hi]]
-        if rows.size == 0:
-            continue
-        # swept-bound convention: center' = c + v/2, radius' = r + |v|/2.
-        # Since round 4 the cloud's grid cells CLIP member bounds
-        # (spatial-split duplication, tests/test_sphere_grid.py), so the
-        # cluster AABB need only INTERSECT each member's swept AABB —
-        # full containment is no longer an invariant
-        rsw = (np.sqrt(gtab[3, rows])
-               + 0.5 * np.linalg.norm(gtab[4:7, rows], axis=0))
-        for ax in range(3):
-            cm = gtab[ax, rows] + 0.5 * gtab[4 + ax, rows]
-            assert (cm + rsw >= clb[c, ax] - 1e-3).all()
-            assert (cm - rsw <= clb[c, 3 + ax] + 1e-3).all()
-
-
-def test_motion_split_gates():
-    """No split for all-static scenes (flagship) and for scenes without a
-    64-sphere static majority; env kill-switch honored."""
-    import os
-
-    from rustraytrace_tpu.ops.pallas_megakernel import prepare_megakernel
-
-    scene, cfg, _ = models.book1_random_spheres(dict(image_width=48))
-    _, st = prepare_megakernel(scene, derive_camera(cfg), width=48,
-                               height=27, spp=2, max_depth=4)
-    assert st["n_ssc_static"] == 0 and not st["moving"]
-
-    scene2, cfg2, _ = models.book2_bouncing_spheres(dict(image_width=48))
-    os.environ["RTT_NO_MOTION_SPLIT"] = "1"
-    try:
-        _, st2 = prepare_megakernel(scene2, derive_camera(cfg2), width=48,
-                                    height=27, spp=2, max_depth=4)
-        assert st2["n_ssc_static"] == 0 and st2["moving"]
-    finally:
-        del os.environ["RTT_NO_MOTION_SPLIT"]
-    _, st3 = prepare_megakernel(scene2, derive_camera(cfg2), width=48,
-                                height=27, spp=2, max_depth=4,
-                                tile_rows=16)  # new kwargs combo: no cache
-    assert 0 < st3["n_ssc_static"] < st3["n_sclusters"]

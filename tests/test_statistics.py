@@ -78,17 +78,11 @@ def test_rr_preserves_mean():
 
 
 def test_volumetric_mis_unbiased_vs_plain_path():
-    """Round 4: the MIS estimator WITH media (isotropic scatter lanes drawn
+    """The MIS estimator WITH media (isotropic scatter lanes drawn
     from the NEE mixture) must estimate the same integral as the plain path
     estimator on the same smoke-Cornell scene — a distribution-level pin of
     the volumetric MIS weights (wrong 1/4π handling would shift the mean by
     ~2x, far outside the MC tolerance here)."""
-    import sys
-    from pathlib import Path
-
-    sys.path.insert(0, str(Path(__file__).parent))
-    from test_round4_tpu import _smoke_mis_scene
-
     import jax
     import numpy as np
 
@@ -106,3 +100,32 @@ def test_volumetric_mis_unbiased_vs_plain_path():
     m_m, m_p = float(mis.mean()), float(pth.mean())
     assert np.isfinite(mis).all() and m_m > 0.01
     assert abs(m_m - m_p) < 0.08 * m_p, (m_m, m_p)
+
+
+def _smoke_mis_scene():
+    """Cornell box + smoke medium box + NEE light: the volumetric-MIS
+    combination (isotropic scatter lanes drawn from the NEE mixture)."""
+    from rustraytrace_tpu.config import RenderConfig
+    from rustraytrace_tpu.scene import SceneBuilder
+
+    b = SceneBuilder()
+    red = b.lambertian((0.65, 0.05, 0.05))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    light = b.diffuse_light((15.0, 15.0, 15.0))
+    b.add_quad((555, 0, 0), (0, 0, 555), (0, 555, 0), green)
+    b.add_quad((0, 0, 555), (0, 0, -555), (0, 555, 0), red)
+    b.add_quad((0, 555, 0), (555, 0, 0), (0, 0, 555), white)
+    b.add_quad((0, 0, 555), (555, 0, 0), (0, 0, -555), white)
+    b.add_quad((555, 0, 555), (-555, 0, 0), (0, 555, 0), white)
+    b.add_quad((213, 554, 227), (130, 0, 0), (0, 0, 105), light)
+    b.add_medium_box((0, 0, 0), (165, 330, 165), 0.01,
+                     b.isotropic((0.0, 0.0, 0.0)), rotate_y_deg=15.0,
+                     translate=(265, 0, 295))
+    b.add_sphere((190, 90, 190), 90.0, b.dielectric(1.5))
+    b.add_light_quad((343, 554, 332), (-130, 0, 0), (0, 0, -105))
+    cfg = RenderConfig(
+        aspect_ratio=1.0, image_width=96, samples_per_pixel=64,
+        max_depth=12, background=(0.0, 0.0, 0.0), vfov=40.0,
+        lookfrom=(278.0, 278.0, -800.0), lookat=(278.0, 278.0, 0.0))
+    return b.build(), cfg
